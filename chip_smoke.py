@@ -2,7 +2,7 @@
 """Drive gs_init_tpu_torch's main path on one NVIDIA H100 and hold its CUDA
 kernels against their plain PyTorch versions.
 
-    python3 chip_smoke.py [--logs DIR]   # from the repo root, on a machine with one card
+    python3 chip_smoke.py   # from the repo root, on a machine with one card
 
 Phases, each fatal: an exception ends the script with a non-zero code and
 no result line.
@@ -12,15 +12,18 @@ no result line.
    timed.
 2. Kernel against plain on the card: the compositor forward and backward
    on a mid-size scene (20k gaussians, 640x480, tile 32) and on the deep
-   stack of 96 gaussians at opacity 0.95 (tile 16). Then one train step of a
-   small scene on the card against the same step on the CPU, where the
-   wrappers run the plain versions.
+   stack of 96 gaussians at opacity 0.95 (tile 16); the scan probe on its
+   [128, 128] inputs. Then one train step of a small scene on the card
+   against the same step on the CPU, where the wrappers run the plain
+   versions.
 3. The main path: the train step at bench.py's flagship scenario (300k
    gaussians, capacity 393216, 1296x840, tile 32, chunk 128, SH degree 3,
-   L1 + SSIM, Adam, densification statistics), 3 warm-up and 20 timed
-   steps. The launch counts are set to 0 just before and read just after;
-   each kernel must have launched once per step. A profiler window of 3
-   more steps gives the device time by kernel.
+   L1 + SSIM, Adam, densification statistics), a step function built
+   afresh, 3 warm-up and 20 timed steps. The launch counts are set to 0
+   just before and read just after; each compositor kernel must have
+   launched once per step, the scan probe once (at the step function's
+   first call). A profiler window of 3 more steps gives the device time by
+   kernel.
 4. Each kernel against its plain version on the flagship step's own inputs
    (captured from one more step), the time of both, and each kernel's bound
    from this run's data.
@@ -30,10 +33,7 @@ no result line.
 
 The line before the last lists the kernels as JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-With --logs DIR, the full build log (ptxas registers and spills) and the
-profiler's table of every kernel are written to DIR as well.
 """
-import argparse
 import json
 import os
 import subprocess
@@ -71,30 +71,32 @@ KERNELS = {
         source="gs_init_tpu_torch/csrc/composite_bwd.cu",
         replaces="gs_init_tpu/ops/rasterize.py:574",
     ),
+    "scan_probe": dict(
+        route="cuda",
+        source="gs_init_tpu_torch/csrc/scan_probe.cu",
+        replaces="gs_init_tpu/ops/rasterize.py:154",
+    ),
 }
 
-# Forward rows 0-5 within 1e-5 of max(1, the row's max |value|): colour,
-# alpha and T are at most 1, accumulated depth is not (f32 rounding of long
-# sums grows with the value). Row 6 (chunks processed) must be equal.
-FWD_RTOL = 1e-5
+# Forward rows 0-3 and 5 (colour, alpha, T: all at most 1) within 1e-5 abs.
+# Row 4, the accumulated depth, within 1e-5 of max(1, the row's max |value|):
+# it sums w * depth with depths of 7 to 14 at the flagship, where the two
+# summation orders round apart by more than 1e-5 abs (1.383e-5 measured on
+# an H100). Row 6 (chunks processed) must be equal.
+FWD_ATOL = 1e-5
+DEPTH_RTOL = 1e-5
 BWD_RTOL = 1e-4  # of each column's max |grad|: float atomics reorder the sums
+# Scan probe: the sum within 1e-5 of its max |value|, the product within
+# 1e-5 relative per element (a tree and a sequential order of n-1 roundings).
+SCAN_RTOL = 1e-5
 # A whole train step, card against CPU: the projection's autograd also runs
 # on two math libraries, so the first Adam moment (0.1 x gradient) is held
 # to 1e-3 of each leaf's max.
 STEP_RTOL = 1e-3
 
-LOG_DIR = None  # --logs
-
 
 def log(*args):
     print(*args, flush=True)
-
-
-def write_log(name, text):
-    if LOG_DIR is not None:
-        os.makedirs(LOG_DIR, exist_ok=True)
-        with open(os.path.join(LOG_DIR, name), "w") as f:
-            f.write(text)
 
 
 def cuda_ms(fn, iters, warmup=1):
@@ -131,7 +133,6 @@ def build_kernels():
     t0 = time.perf_counter()
     secs = kernels.build()
     total = time.perf_counter() - t0
-    write_log("build.log", "".join(f"== {n}\n{t}\n" for n, t in kernels.BUILD_LOG.items()))
     for name, text in kernels.BUILD_LOG.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -208,9 +209,9 @@ def check_kernels(tag, fwd_args, g_out, want_absgrad=True):
     if not (torch.isfinite(out_k).all() and torch.isfinite(out_p).all()):
         raise RuntimeError(f"{tag}: non-finite forward output")
     row_err = (out_k[:, :6] - out_p[:, :6]).abs().amax(dim=(0, 2))
-    row_scale = out_p[:, :6].abs().amax(dim=(0, 2)).clamp(min=1.0)
     fwd_err = float(row_err.max())
-    fwd_rel = float((row_err / row_scale).max())
+    unit_err = float(row_err[[0, 1, 2, 3, 5]].max())
+    depth_rel = float(row_err[4] / out_p[:, 4].abs().max().clamp(min=1.0))
     nproc_k, nproc_p = out_k[:, 6, 0], out_p[:, 6, 0]
     bargs = (table, gid, starts, out_k, g_out, num_tiles, ntx, nty, tile, chunk, want_absgrad)
     dk, ak = prast.composite_bwd(*bargs)
@@ -228,14 +229,38 @@ def check_kernels(tag, fwd_args, g_out, want_absgrad=True):
     early = int((nproc_k.long() < nchunks).sum())
     log(f"  {tag}: {num_tiles} tiles, {int(starts[-1])} pairs, {early} tiles stopped early; "
         f"fwd rows 0-5 max abs err by row {[float(f'{e:.3e}') for e in row_err.tolist()]}, "
-        f"max err / max(1, row max) {fwd_rel:.3e} (tol {FWD_RTOL:g}), "
-        f"row 6 equal {bool(torch.equal(nproc_k, nproc_p))}; "
+        f"rows 0-3, 5 {unit_err:.3e} (tol {FWD_ATOL:g} abs), depth err / max(1, row max) "
+        f"{depth_rel:.3e} (tol {DEPTH_RTOL:g}), row 6 equal {bool(torch.equal(nproc_k, nproc_p))}; "
         f"bwd max abs err {bwd_err:.3e}, max err / column max {bwd_rel:.3e} (tol {BWD_RTOL:g})")
-    if fwd_rel > FWD_RTOL or not torch.equal(out_k[:, 6], out_p[:, 6]):
+    if unit_err > FWD_ATOL or depth_rel > DEPTH_RTOL or not torch.equal(out_k[:, 6], out_p[:, 6]):
         raise RuntimeError(f"{tag}: forward kernel disagrees with its plain version")
     if bwd_rel > BWD_RTOL:
         raise RuntimeError(f"{tag}: backward kernel disagrees with its plain version")
     return fwd_err, bwd_err
+
+
+def check_scan_kernel(dev):
+    """The scan probe kernel against its plain version on the probe's
+    [128, 128] inputs, the shapes the main path gives it. Returns the max
+    abs error over both outputs."""
+    import torch
+    from gs_init_tpu_torch.ops import rasterize as prast
+
+    x, m = prast.scan_probe_inputs(dev)
+    s, q = prast.scan_probe(x, m)
+    ws, wq = prast.scan_probe_plain(x, m)
+    torch.cuda.synchronize()
+    if not all(bool(torch.isfinite(a).all()) for a in (s, q, ws, wq)):
+        raise RuntimeError("scan probe: non-finite output")
+    sum_err, prod_err = float((s - ws).abs().max()), float((q - wq).abs().max())
+    sum_rel = sum_err / float(ws.abs().max().clamp(min=1e-30))
+    prod_rel = float(((q - wq).abs() / wq.abs().clamp(min=1e-30)).max())
+    log(f"  scan probe {tuple(x.shape)} x2: sum max abs err {sum_err:.3e}, / max |sum| "
+        f"{sum_rel:.3e}; product max abs err {prod_err:.3e}, max rel err {prod_rel:.3e} "
+        f"(tol {SCAN_RTOL:g})")
+    if sum_rel > SCAN_RTOL or prod_rel > SCAN_RTOL:
+        raise RuntimeError("scan probe: kernel disagrees with its plain version")
+    return max(sum_err, prod_err)
 
 
 def step_card_vs_cpu(dev):
@@ -333,8 +358,9 @@ def flagship_setup(dev, n=300_000, cap=393_216, width=1296, height=840):
         sstate=dstrat.init_state(cap, dev),
         batch=Batch(camtoworlds=T(c2w)[None], Ks=T(K)[None], pixels=T(target),
                     image_ids=torch.zeros((1,), dtype=torch.long, device=dev)),
-        step_fn=make_train_step(cfg, acfg, width, height), step=0,
+        make_step=lambda: make_train_step(cfg, acfg, width, height), step=0,
     )
+    ctx["step_fn"] = ctx["make_step"]()
     # Size the pair table from one step, as the Runner does on overflow.
     m = run_step(ctx)
     pairs, overflow = int(m["pairs"]), int(m["overflow"])
@@ -360,6 +386,9 @@ def main_path(ctx, warm=3, timed=20):
 
     phases = ("setup", "render", "loss", "backward", "adam", "stats")
     kernels.reset_launch_counts()
+    # A fresh step function: its first call runs the scan probe, as the
+    # Runner's does.
+    ctx["step_fn"] = ctx["make_step"]()
     for _ in range(warm):
         run_step(ctx)
     torch.cuda.synchronize()
@@ -381,9 +410,11 @@ def main_path(ctx, warm=3, timed=20):
     launches = dict(kernels.LAUNCHES)
 
     steps = warm + timed
+    want = dict(composite_fwd=steps, composite_bwd=steps, scan_probe=1)
     for name in KERNELS:
-        if launches.get(name, 0) != steps:
-            raise RuntimeError(f"{name} launched {launches.get(name, 0)} times in {steps} steps")
+        if launches.get(name, 0) != want[name]:
+            raise RuntimeError(f"{name} launched {launches.get(name, 0)} times in {steps} steps, "
+                               f"not {want[name]}")
     losses = torch.stack([m["loss"] for _, m in records])
     if not bool(torch.isfinite(losses).all()):
         raise RuntimeError("non-finite loss on the main path")
@@ -431,7 +462,6 @@ def profile_window(ctx, step_ms, nsteps=3):
         rows.append((us / nsteps, evt.count // nsteps, evt.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) * nsteps
-    write_log("profile.txt", "".join(f"{us:12.1f} us/step  x{cnt:<4d} {key}\n" for us, cnt, key in rows))
     if busy <= 0:  # a measurement gap, not a fault of the path
         log("  profiler saw no device time here; the CUDA-event phase times above stand")
         return
@@ -497,8 +527,7 @@ def work(fwd_args, out):
     return evals, comp, uncl, int(used.sum())
 
 
-def kernel_report(ctx, launches):
-    import torch
+def kernel_report(ctx, launches, scan_err):
     from gs_init_tpu_torch.ops import rasterize as prast
 
     fargs, bargs = capture_inputs(ctx)
@@ -515,6 +544,12 @@ def kernel_report(ctx, launches):
         t.setdefault("fwd", []).append(cuda_ms(lambda: prast.composite_fwd(*fargs), 20))
         t.setdefault("bwd", []).append(cuda_ms(lambda: prast.composite_bwd(*bk), 20))
         t.setdefault("bwd_plain", []).append(cuda_ms(lambda: prast.composite_bwd_plain(*bk), 1))
+    x, m = prast.scan_probe_inputs(fargs[0].device)
+    for _ in range(2):
+        t.setdefault("scan_plain", []).append(cuda_ms(lambda: prast.scan_probe_plain(x, m), 100))
+        t.setdefault("scan", []).append(cuda_ms(lambda: prast.scan_probe(x, m), 100))
+        t.setdefault("scan", []).append(cuda_ms(lambda: prast.scan_probe(x, m), 100))
+        t.setdefault("scan_plain", []).append(cuda_ms(lambda: prast.scan_probe_plain(x, m), 100))
     t = {k: float(np.min(v)) for k, v in t.items()}
 
     evals, comp, uncl, rows_used = work(fargs, out)
@@ -545,6 +580,9 @@ def kernel_report(ctx, launches):
     rows = [
         entry("composite_fwd", fwd_err, t["fwd"], t["fwd_plain"], fwd_bytes, fwd_ops),
         entry("composite_bwd", bwd_err, t["bwd"], t["bwd_plain"], bwd_bytes, bwd_ops),
+        # Two inputs read and two outputs written once; one add or one
+        # multiply per element of each output.
+        entry("scan_probe", scan_err, t["scan"], t["scan_plain"], 4 * x.numel() * 4, 2 * x.numel()),
     ]
     for r in rows:
         log(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms), bound "
@@ -597,10 +635,6 @@ def runner_e2e(steps=300, width=648, height=420):
 
 
 def main():
-    global LOG_DIR
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--logs", help="directory for the full build log and profiler table")
-    LOG_DIR = ap.parse_args().logs
     import torch
 
     if not torch.cuda.is_available():
@@ -620,6 +654,7 @@ def main():
     log("phase 2: kernels against plain, and a train step against the CPU")
     check_kernels("mid-size scene", *compositor_case(dev, "mid"))
     check_kernels("deep stack", *compositor_case(dev, "deep"))
+    scan_err = check_scan_kernel(dev)
     step_card_vs_cpu(dev)
 
     log("phase 3: the main path, train steps at the flagship scenario")
@@ -628,7 +663,7 @@ def main():
     profile_window(ctx, float(np.median(step_ms)))
 
     log("phase 4: kernels on the flagship step's inputs")
-    rows = kernel_report(ctx, launches)
+    rows = kernel_report(ctx, launches, scan_err)
     del ctx
     torch.cuda.empty_cache()
 

@@ -77,8 +77,6 @@ def init_from_points(
     init_opacity: float = 0.1,
     init_scale: float = 1.0,
     generator: Optional[torch.Generator] = None,
-    scale_clamp_quantile: float = 0.0,
-    fixed_scale: Optional[float] = None,
 ) -> GaussianState:
     """SfM point-cloud initialisation (reference runner.py:53-138).
 
@@ -96,12 +94,7 @@ def init_from_points(
         points, rgbs = points[sel], rgbs[sel]
     else:
         points, rgbs = points[:n], rgbs[:n]
-    if fixed_scale is not None:
-        dist = torch.full((n,), float(fixed_scale), device=dev)
-    else:
-        dist = torch.clamp(mean_knn_dist(points, k=3), min=1e-7)
-    if scale_clamp_quantile > 0.0:
-        dist = torch.minimum(dist, torch.quantile(dist, scale_clamp_quantile))
+    dist = torch.clamp(mean_knn_dist(points, k=3), min=1e-7)
     scales = torch.log(dist * init_scale)[:, None].repeat(1, 3)
 
     k = num_sh_bases(sh_degree)

@@ -7,7 +7,9 @@ and opacity / scale regularisers, backward through the compositor's CUDA
 kernel, Adam in place, and the densification statistics from the
 ``means2d_dummy`` gradients (or the absgrad tap). PyTorch runs eagerly, so
 ``make_train_step`` only closes over the configuration; the step reads
-``cfg.pair_capacity`` on every call, which lets the Runner grow it.
+``cfg.pair_capacity`` on every call, which lets the Runner grow it. The
+step's first call on a CUDA device runs the scan probe kernel once
+(``ops.rasterize.check_scan``), where the JAX step resolves ``_scan_mode``.
 
 Pose optimisation, appearance embeddings and the bilateral grid raise
 NotImplementedError (a later slice of the port).
@@ -19,6 +21,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ..ops.rasterize import check_scan
 from ..ops.render import rasterize
 from ..ops.sh import num_sh_bases
 from ..ops.ssim import ssim
@@ -70,6 +73,7 @@ def make_train_step(cfg, acfg: AdamConfig, width: int, height: int):
         impl=cfg.rasterizer_impl,
         render_mode="RGB+ED" if cfg.depth_loss else "RGB",
     )
+    scan_checked = False
 
     def train_step(
         gstate: GaussianState,
@@ -80,10 +84,16 @@ def make_train_step(cfg, acfg: AdamConfig, width: int, height: int):
         bkgd: Optional[torch.Tensor] = None,
         mark: Optional[Callable[[str], None]] = None,
     ):
+        nonlocal scan_checked
         mark = mark or (lambda name: None)
         p = gstate.params
         alive = gstate.alive
         dev = p.means.device
+        if dev.type == "cuda" and not scan_checked:
+            # The JAX step resolves its scan lowering (_scan_mode) when it
+            # is first traced; the port checks its scan kernel here.
+            check_scan(dev)
+            scan_checked = True
         c = batch.pixels.shape[0]
         leaves = {k: v.detach().requires_grad_(True) for k, v in p.items()}
         lp = GaussianParams(**leaves)

@@ -48,6 +48,11 @@ KERNELS = {
         # num_tiles, ntx, nty, tile, chunk, want_absgrad, stream
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     ),
+    "scan_probe": (
+        "scan_probe.cu",
+        # x, m, sum, prod, n, p, stream
+        [_P, _P, _P, _P, _I, _I, _P],
+    ),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}

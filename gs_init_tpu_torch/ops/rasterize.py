@@ -18,6 +18,11 @@ PyTorch version beside it, which the tests hold against the JAX package and
 walk the same chunks vectorised over tiles ([tiles, chunk, pixels] per
 chunk index with a per-tile live mask); the plain backward is the explicit
 replay, not autograd through the plain forward.
+
+``scan_probe`` (``csrc/scan_probe.cu``) ports the JAX package's third
+Pallas kernel, the scan probe that ``_scan_mode`` runs once before the
+first compositor trace; ``check_scan`` runs it once per train step
+function (``engine/train_step.py``).
 """
 from __future__ import annotations
 
@@ -238,6 +243,13 @@ def composite_bwd_plain(
     return dtable, absgrad
 
 
+def scan_probe_plain(x: torch.Tensor, m: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exclusive prefix sum of ``x`` and exclusive prefix product of ``m``
+    along axis 0 (the JAX probe's ``_hs_scan`` pair)."""
+    zeros = torch.zeros_like(x[:1])
+    return torch.cat([zeros, torch.cumsum(x, 0)[:-1]], 0), _exclusive_cumprod(m, 0)
+
+
 # ------------------------------------------------------------ kernel wrappers
 
 
@@ -308,6 +320,47 @@ def composite_bwd(
     kernels.check("composite_bwd", code)
     kernels.LAUNCHES["composite_bwd"] += 1
     return dtable, absgrad
+
+
+def scan_probe(x: torch.Tensor, m: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exclusive prefix sum and product along axis 0 of two f32 [n, p]
+    arrays (n <= 1024): the CUDA kernel for CUDA tensors, else plain."""
+    if not x.is_cuda:
+        return scan_probe_plain(x, m)
+    if x.dim() != 2 or x.shape[0] > 1024 or m.shape != x.shape:
+        raise ValueError(f"x and m must share a shape [n <= 1024, p], got {tuple(x.shape)}, {tuple(m.shape)}")
+    for name, a in (("x", x), ("m", m)):
+        if a.dtype != torch.float32 or not a.is_cuda or not a.is_contiguous() or a.device != x.device:
+            raise ValueError(f"{name} must be a contiguous float32 tensor on {x.device}")
+    fn = kernels.function("scan_probe")
+    s, q = torch.empty_like(x), torch.empty_like(m)
+    code = fn(x.data_ptr(), m.data_ptr(), s.data_ptr(), q.data_ptr(), x.shape[0], x.shape[1], _stream(x))
+    kernels.check("scan_probe", code)
+    kernels.LAUNCHES["scan_probe"] += 1
+    return s, q
+
+
+def scan_probe_inputs(device, n: int = 128):
+    """The JAX probe's inputs: linspace(-1, 1) and linspace(0.5, 1), [n, n]."""
+    x = torch.linspace(-1.0, 1.0, n * n, dtype=torch.float32, device=device).reshape(n, n)
+    m = torch.linspace(0.5, 1.0, n * n, dtype=torch.float32, device=device).reshape(n, n)
+    return x, m
+
+
+def check_scan(device) -> None:
+    """Counterpart of the JAX package's ``_scan_mode`` probe: run the scan
+    kernel once on the probe's inputs and check it against float64 scans
+    to the probe's 1e-3. The JAX probe picks between two TPU lowerings; the
+    port has one, so a disagreement raises."""
+    x, m = scan_probe_inputs(device)
+    s, q = scan_probe(x, m)
+    ws, wq = scan_probe_plain(x.double(), m.double())
+    ok = bool(
+        torch.isfinite(s).all() and torch.isfinite(q).all()
+        and (s.double() - ws).abs().max() < 1e-3 and (q.double() - wq).abs().max() < 1e-3
+    )
+    if not ok:
+        raise RuntimeError(f"the scan probe kernel disagrees with its float64 reference on {device}")
 
 
 # ----------------------------------------------------------- autograd op

@@ -7,6 +7,7 @@ agree to f32 rounding of two summation orders (atol 2e-6), row 6 (chunks
 processed) exactly; backward dtable and absgrad within 2e-5 of their max
 magnitude (the JAX side reduces gradient records by a sort and a cumsum
 difference, the port by index_add, so the sums round differently).
+The scan probe's plain version is held against the JAX probe kernel.
 """
 import jax
 import jax.numpy as jnp
@@ -152,4 +153,40 @@ def test_cpu_tensors_take_the_plain_path():
     out = prast.composite_fwd(table, gid, starts, 1, 1, 1, TILE, CHUNK)
     assert out.shape == (1, 8, TILE * TILE)
     assert float(out[0, prast.ROW_T].min()) == 1.0
-    assert kernels.LAUNCHES == {"composite_fwd": 0, "composite_bwd": 0}
+    prast.check_scan("cpu")
+    assert kernels.LAUNCHES == {"composite_fwd": 0, "composite_bwd": 0, "scan_probe": 0}
+
+
+def _jax_probe(x, m):
+    """The JAX package's scan probe kernel (rasterize.py _PROBE_SRC), run by
+    pallas_call in interpret mode."""
+    from jax.experimental import pallas as pl
+    from gs_init_tpu.ops.rasterize import _hs_scan
+
+    def k(x_ref, m_ref, o_ref, p_ref):
+        o_ref[...] = _hs_scan(x_ref[...], reverse=False, exclusive=True)
+        p_ref[...] = _hs_scan(m_ref[...], exclusive=True, mul=True)
+
+    shape = jax.ShapeDtypeStruct(x.shape, jnp.float32)
+    return pl.pallas_call(k, out_shape=[shape, shape], interpret=True)(
+        jnp.asarray(x), jnp.asarray(m)
+    )
+
+
+@pytest.mark.parametrize("kind", ["probe", "random"])
+def test_scan_probe_matches_pallas(rng, kind):
+    """The scan probe's plain version against the JAX probe kernel: the
+    sum within 1e-5 of its max magnitude, the product within 1e-5 relative
+    per element (a tree and a sequential order each round up to n-1 times)."""
+    if kind == "probe":
+        x, m = (n(a) for a in prast.scan_probe_inputs("cpu"))
+    else:
+        x = rng.normal(size=(96, 40)).astype(np.float32)
+        m = rng.uniform(0.5, 1.0, (96, 40)).astype(np.float32)
+    js, jq = _jax_probe(x, m)
+    s, q = prast.scan_probe(t(x), t(m))
+    assert s.shape == q.shape == x.shape
+    assert_close_scaled(s, js, 1e-5, err_msg="prefix sum")
+    np.testing.assert_allclose(n(q), n(jq), rtol=1e-5, atol=0, err_msg="prefix product")
+    np.testing.assert_array_equal(n(s)[0], 0.0)
+    np.testing.assert_array_equal(n(q)[0], 1.0)
