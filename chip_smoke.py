@@ -12,7 +12,9 @@ no result line.
    timed.
 2. Kernel against plain on the card: the compositor forward and backward
    on a mid-size scene (20k gaussians, 640x480, tile 32) and on the deep
-   stack of 96 gaussians at opacity 0.95 (tile 16); the scan probe on its
+   stack of 96 gaussians at opacity 0.95 (tile 16), with a count of the
+   composited pair-pixels that fall outside the kernels' pair bounds
+   (ops/rasterize.pair_bounds), which must be 0; the scan probe on its
    [128, 128] inputs. Then one train step of a small scene on the card
    against the same step on the CPU, where the wrappers run the plain
    versions.
@@ -25,8 +27,9 @@ no result line.
    first call). A profiler window of 3 more steps gives the device time by
    kernel.
 4. Each kernel against its plain version on the flagship step's own inputs
-   (captured from one more step), the time of both, and each kernel's bound
-   from this run's data.
+   (captured from one more step), the pair-bounds count again, the chunks
+   per tile, the time of both, and each kernel's bound from this run's
+   data.
 5. The Runner end to end: a synthetic COLMAP scene at 648x420 with 12
    cameras, 300 steps with refines at steps 100 and 200; eval PSNR must
    rise from the initial gaussians to the trained ones.
@@ -49,8 +52,9 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
 # FP32 operations per pair-pixel, counted from the CUDA sources:
-# every evaluated pair-pixel runs alpha_at (2 sub, 6 mul, 2 add for sigma,
-# exp, 1 mul, 2 compares, 1 min = 16); a pair that composites adds, in the
+# every evaluated pair-pixel (one inside its pair's bounding box) runs
+# alpha_at (2 sub, 6 mul, 2 add for sigma, exp, 1 mul, 2 compares,
+# 1 min = 16); a pair that composites adds, in the
 # forward, w = alpha (T P) (2), four colour/depth FMAs (8) and P *= 1 - alpha
 # (2); in the backward 1 - alpha, 1/(1 - alpha), T_k, w (4), q (7), u and
 # the Kahan carry (5), dalpha (3), four colour FMAs (8) and P (1); an
@@ -198,7 +202,8 @@ def compositor_case(dev, kind, seed=0):
 def check_kernels(tag, fwd_args, g_out, want_absgrad=True):
     """Each kernel against its plain version on the same inputs (the
     backward of both on the kernel's forward output, so both replay the
-    same chunks). Returns (forward max abs error, backward max abs error)."""
+    same chunks), and the pair bounds against the composited pair-pixels.
+    Returns (forward max abs error, backward max abs error, work(...))."""
     import torch
     from gs_init_tpu_torch.ops import rasterize as prast
 
@@ -227,7 +232,9 @@ def check_kernels(tag, fwd_args, g_out, want_absgrad=True):
     bwd_err = float(diff.max())
     _, _, _, nchunks = prast._chunk_windows(starts, chunk)
     early = int((nproc_k.long() < nchunks).sum())
+    wk = work(fwd_args, out_k)
     log(f"  {tag}: {num_tiles} tiles, {int(starts[-1])} pairs, {early} tiles stopped early; "
+        f"{wk['composited']} composited pair-pixels, {wk['outside']} outside the pair bounds (must be 0); "
         f"fwd rows 0-5 max abs err by row {[float(f'{e:.3e}') for e in row_err.tolist()]}, "
         f"rows 0-3, 5 {unit_err:.3e} (tol {FWD_ATOL:g} abs), depth err / max(1, row max) "
         f"{depth_rel:.3e} (tol {DEPTH_RTOL:g}), row 6 equal {bool(torch.equal(nproc_k, nproc_p))}; "
@@ -236,7 +243,9 @@ def check_kernels(tag, fwd_args, g_out, want_absgrad=True):
         raise RuntimeError(f"{tag}: forward kernel disagrees with its plain version")
     if bwd_rel > BWD_RTOL:
         raise RuntimeError(f"{tag}: backward kernel disagrees with its plain version")
-    return fwd_err, bwd_err
+    if wk["outside"]:
+        raise RuntimeError(f"{tag}: {wk['outside']} composited pair-pixels lie outside the pair bounds")
+    return fwd_err, bwd_err, wk
 
 
 def check_scan_kernel(dev):
@@ -504,27 +513,53 @@ def capture_inputs(ctx):
 
 
 def work(fwd_args, out):
-    """Pair-pixels this run's data needs: evaluated (in-range pairs of the
-    processed chunks, every pixel of their tile), composited (alpha >=
-    1/255), and unclamped composited; plus the gaussian rows they read."""
+    """Pair-pixels of the processed chunks: in range (in-range pairs, every
+    pixel of their tile), evaluated (those inside the pair's bounding box
+    from ops/rasterize.pair_bounds, clipped to the tile: a pixel outside it
+    needs no per-pixel arithmetic), composited (alpha >= 1/255), unclamped
+    composited, and composited ones outside the pair bounds (must be 0);
+    plus the gaussian rows read."""
     import torch
     from gs_init_tpu_torch.ops import rasterize as prast
 
     table, gid, starts, num_tiles, ntx, nty, tile, chunk = fwd_args
     s, e, c0, _ = prast._chunk_windows(starts, chunk)
     nproc = out[:, prast.ROW_NPROC, 0].long()
-    evals = comp = uncl = 0
+    w = dict(in_range=0, evaluated=0, composited=0, unclamped=0, outside=0)
     used = torch.zeros(table.shape[0], dtype=torch.bool, device=table.device)
+
+    def span(centre, half):  # pixel centres c + 0.5 of [0, tile) with |c - centre| <= half
+        lo = torch.ceil(centre - half).clamp(0, tile)
+        hi = torch.floor(centre + half).clamp(-1, tile - 1)
+        n = (hi - lo + 1).clamp(min=0)
+        return torch.where(torch.isinf(half) & (half > 0), float(tile), n.nan_to_num(0.0))
+
     for i in range(int(nproc.max())):
         live = torch.nonzero(i < nproc).flatten()
         rows, inr, g = prast._gather_chunk(table, gid, s[live], e[live], c0[live], i, chunk)
         px, py = prast._pixel_coords(live, tile, ntx, nty)
         alpha, aux = prast._alpha_terms(rows, inr, px, py)
-        evals += int(inr.sum()) * tile * tile
-        comp += int((alpha > 0).sum())
-        uncl += int(aux["unclamped"].sum())
+        s_cut, hx, hy = prast.pair_bounds(rows)
+        mx, my = rows[:, :, 0:1].double(), rows[:, :, 1:2].double()
+        dx, dy = aux["dx"], aux["dy"]
+        sigma = aux["ca"] * dx * dx + aux["cc"] * dy * dy + aux["cb"] * dx * dy
+        inside = (
+            (sigma <= s_cut[..., None])
+            & ((px.double() - mx).abs() <= hx[..., None])
+            & ((py.double() - my).abs() <= hy[..., None])
+        )
+        ok = alpha > 0
+        ox = px[:, :, 0:1].double() - 0.5  # tile origin: pixel 0 is its top-left corner
+        oy = py[:, :, 0:1].double() - 0.5
+        box = span(mx[..., 0] - ox[..., 0] - 0.5, hx) * span(my[..., 0] - oy[..., 0] - 0.5, hy)
+        w["in_range"] += int(inr.sum()) * tile * tile
+        w["evaluated"] += int(box[inr].sum())
+        w["composited"] += int(ok.sum())
+        w["unclamped"] += int(aux["unclamped"].sum())
+        w["outside"] += int((ok & ~inside).sum())
         used[g[inr]] = True
-    return evals, comp, uncl, int(used.sum())
+    w["rows_used"] = int(used.sum())
+    return w
 
 
 def kernel_report(ctx, launches, scan_err):
@@ -534,8 +569,13 @@ def kernel_report(ctx, launches, scan_err):
     log(f"  captured the flagship step's compositor inputs: table {tuple(fargs[0].shape)}, "
         f"{int(fargs[2][-1])} pairs, {fargs[3]} tiles of {fargs[6]}x{fargs[6]}")
     g_out = bargs[4]
-    fwd_err, bwd_err = check_kernels("flagship", fargs, g_out, want_absgrad=bargs[10])
+    fwd_err, bwd_err, wk = check_kernels("flagship", fargs, g_out, want_absgrad=bargs[10])
     out = prast.composite_fwd(*fargs)
+    _, _, _, nchunks = prast._chunk_windows(fargs[2], fargs[7])
+    for name, c in (("in the tile's range", nchunks), ("processed (row 6)", out[:, prast.ROW_NPROC, 0])):
+        c = c.double()
+        log(f"  chunks per tile, {name}: min {int(c.min())}, median {float(c.median()):g}, "
+            f"max {int(c.max())}, mean {float(c.mean()):.3f}")
     bk = (fargs[0], fargs[1], fargs[2], out, g_out) + fargs[3:] + (bargs[10],)
 
     t = {}
@@ -552,7 +592,7 @@ def kernel_report(ctx, launches, scan_err):
         t.setdefault("scan_plain", []).append(cuda_ms(lambda: prast.scan_probe_plain(x, m), 100))
     t = {k: float(np.min(v)) for k, v in t.items()}
 
-    evals, comp, uncl, rows_used = work(fargs, out)
+    evals, comp, uncl, rows_used = wk["evaluated"], wk["composited"], wk["unclamped"], wk["rows_used"]
     table, gid, starts, num_tiles = fargs[:4]
     pixels = fargs[6] ** 2
     pairs = int(starts[-1])
@@ -566,8 +606,10 @@ def kernel_report(ctx, launches, scan_err):
     bwd_bytes = in_bytes + 2 * out_bytes + table.shape[0] * (16 + 2) * 4
     fwd_ops = evals * OPS_EVAL + comp * OPS_FWD_COMPOSITED
     bwd_ops = evals * OPS_EVAL + comp * OPS_BWD_COMPOSITED + uncl * OPS_BWD_UNCLAMPED
-    log(f"  work: {evals} evaluated pair-pixels, {comp} composited, {uncl} unclamped; "
-        f"{rows_used} gaussian rows read")
+    log(f"  shared memory per block at chunk {fargs[7]}: forward {prast.FWD_SMEM_PER_PAIR * fargs[7]} B, "
+        f"backward {prast.BWD_SMEM_PER_PAIR * fargs[7]} B")
+    log(f"  work: {wk['in_range']} pair-pixels in range, {evals} evaluated (inside the pair bounds' box), "
+        f"{comp} composited, {uncl} unclamped; {rows_used} gaussian rows read")
 
     def entry(name, err, ms, plain_ms, nbytes, ops):
         tb, to = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_FP32_FLOPS * 1e3

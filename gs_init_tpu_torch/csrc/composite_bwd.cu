@@ -22,18 +22,24 @@
 // the absolute value taken per (pair, tile) as the JAX records do.
 //
 // Bound on this card: FP32 arithmetic. At the 300k-gaussian flagship the
-// replay re-evaluates the forward's 612M pair-pixels (16 operations) and
-// runs ~40 more, a divide among them, for each of the 156M that composite,
-// against ~110 MB of traffic: 0.24 ms at 67 TFLOP/s, where this kernel
-// took 3.46 ms on an H100 80GB HBM3 at 700 W (chip_smoke.py).
-// Design: the forward's block layout (256 threads, 4 pixels each). Per
-// pair, each thread sums its pixels' ten gradient terms in registers; a
-// warp that touched the pair reduces them with shuffles and adds its ten
-// partials to a shared [10][chunk] accumulator (shared-memory atomics,
-// eight warps contend); after the chunk, one thread per pair adds the
-// block totals to dtable with global atomics, so each (pair, tile) costs
-// at most ten global atomics plus two for absgrad. Float atomics reorder
-// the sums from run to run: parity with the plain version is relative.
+// replay re-evaluates the 200M pair-pixels inside their pairs' boxes (16
+// operations) and runs 41 more for each of the 156M that composite, a
+// divide among them: 0.143 ms at 67 TFLOP/s. Measured on an H100 80GB HBM3
+// at 700 W (chip_smoke.py): 1.50-1.51 ms, against 3.42-3.46 ms for the
+// PR 1 design.
+// Design: the forward's block layout, staging, pair bounds and tile order
+// (the order by chunks processed), plus:
+// - A warp whose bit is clear skips the pair, its reduction included.
+// - A warp that evaluated pair k sums its lanes' ten gradient terms by
+//   recursive halving (12 shuffles) and stores them into its own slot
+//   part[warp][k] with plain stores, zeros if no lane composited. After
+//   the chunk, one thread per pair adds the slots of the warps in its mask
+//   in a fixed order (deterministic within the block), then adds the block
+//   total to dtable and absgrad with three float4/float2 atomics and one
+//   float2 atomic, each skipped when all zero.
+// - __launch_bounds__(256, 3) holds 80 registers for 3 blocks per SM
+//   (53.5 KB of shared memory each at chunk 128); the few spilled words sit
+//   outside the per-pair loop.
 #include "composite_common.cuh"
 
 namespace {
@@ -41,49 +47,86 @@ namespace {
 using namespace gs;
 
 constexpr int NACC = 10;  // sx sy dca dcb dcc dopa dr dg db dd
-constexpr unsigned FULL = 0xffffffffu;
 
-__global__ void __launch_bounds__(THREADS)
+// Sum v[0..9] over the warp by recursive halving: at each xor step a lane
+// keeps half of its remaining values and sends the other half, so the ten
+// sums take 5 + 3 + 2 + 1 + 1 = 12 shuffles (a tree per value takes 50).
+// Lane L ends with the warp total of value reduced_index(L), as does
+// L ^ 1, where reduced_valid(L); other lanes hold zeros.
+__device__ __forceinline__ float warp_sum10(const float (&v)[NACC], int lane) {
+  const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4, b1 = lane & 2;
+  float a[5];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {  // b4 keeps values 5..9, else 0..4
+    const float keep = b4 ? v[5 + i] : v[i], send = b4 ? v[i] : v[5 + i];
+    a[i] = keep + __shfl_xor_sync(FULL, send, 16);
+  }
+  float c[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {  // b3 keeps a3 a4 and a zero, else a0 a1 a2
+    const float hi = i < 2 ? a[3 + i] : 0.f;
+    const float keep = b3 ? hi : a[i], send = b3 ? a[i] : hi;
+    c[i] = keep + __shfl_xor_sync(FULL, send, 8);
+  }
+  // b2 keeps c2 and a zero, else c0 c1
+  const float e0 = (b2 ? c[2] : c[0]) + __shfl_xor_sync(FULL, b2 ? c[0] : c[2], 4);
+  const float e1 = (b2 ? 0.f : c[1]) + __shfl_xor_sync(FULL, b2 ? c[1] : 0.f, 4);
+  const float f = (b1 ? e1 : e0) + __shfl_xor_sync(FULL, b1 ? e0 : e1, 2);
+  return f + __shfl_xor_sync(FULL, f, 1);
+}
+
+__device__ __forceinline__ int reduced_index(int lane) {
+  return 5 * ((lane >> 4) & 1) + 3 * ((lane >> 3) & 1) + 2 * ((lane >> 2) & 1) +
+         ((lane >> 1) & 1);
+}
+
+__device__ __forceinline__ bool reduced_valid(int lane) {
+  return !((lane & 4) && (lane & 10));
+}
+
+__device__ __forceinline__ bool any4(float4 v) {
+  return v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f;
+}
+
+__global__ void __launch_bounds__(THREADS, 3)
 composite_bwd_kernel(const float* __restrict__ table,
                      const int* __restrict__ gid_sorted,
                      const int* __restrict__ tile_starts,
+                     const int* __restrict__ order,
                      const float* __restrict__ fwd_out,
                      const float* __restrict__ g_out,
                      float* __restrict__ dtable, float* __restrict__ absgrad,
                      int ntx, int nty, int tile, int chunk,
                      int want_absgrad) {
-  extern __shared__ float smem[];
-  float* s = smem;                        // [NATTR][chunk] pair attributes
-  float* acc = smem + NATTR * chunk;      // [NACC][chunk] block sums
-  int* s_gid = reinterpret_cast<int*>(acc + NACC * chunk);  // [chunk]
+  extern __shared__ float4 smem4[];
+  float4* rows = smem4;  // [2][chunk][ROW_F4], double-buffered
+  int* gids = reinterpret_cast<int*>(rows + 2 * ROW_F4 * chunk);  // [3][chunk]
+  float* part = reinterpret_cast<float*>(gids + 3 * chunk);  // [WARPS][chunk][NACC]
 
-  const int t = blockIdx.x;
+  const int t = order[blockIdx.x];
   const int start = tile_starts[t], end = tile_starts[t + 1];
   const int c0 = (start / chunk) * chunk;
   const int pixels = tile * tile;
-  const int ppt = (pixels + THREADS - 1) / THREADS;
   const float* fo = fwd_out + (size_t)t * OUT_ROWS * pixels;
   const float* go = g_out + (size_t)t * OUT_ROWS * pixels;
   const int nproc = (int)fo[ROW_NPROC * pixels];  // same for every pixel
   if (end <= start || nproc == 0) return;  // block-uniform
   const int tloc = t % (ntx * nty);
   const int px0 = (tloc % ntx) * tile, py0 = (tloc / ntx) * tile;
-  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const PixelMap pm = pixel_map(tile);
+  const float px = (float)(px0 + pm.lx) + 0.5f;
 
-  float px[MAX_PPT], py[MAX_PPT], T[MAX_PPT], P[MAX_PPT], S[MAX_PPT];
-  float comp[MAX_PPT];
+  float py[MAX_PPT], T[MAX_PPT], P[MAX_PPT], S[MAX_PPT], comp[MAX_PPT];
   float gr[MAX_PPT], gg[MAX_PPT], gb[MAX_PPT], gd[MAX_PPT];
-  bool has[MAX_PPT];
 #pragma unroll
   for (int j = 0; j < MAX_PPT; ++j) {
-    const int p = pixel_index(j, ppt);
-    has[j] = j < ppt && p < pixels;
-    px[j] = (float)(px0 + p % tile) + 0.5f;
-    py[j] = (float)(py0 + p / tile) + 0.5f;
+    py[j] = (float)(py0 + pm.ly0 + j * pm.dly) + 0.5f;
     T[j] = 1.f;
     comp[j] = 0.f;
     gr[j] = gg[j] = gb[j] = gd[j] = S[j] = 0.f;
-    if (!has[j]) continue;
+    if (!((pm.has >> j) & 1u)) continue;
+    const int p = (pm.ly0 + j * pm.dly) * tile + pm.lx;
     gr[j] = go[ROW_R * pixels + p];
     gg[j] = go[ROW_G * pixels + p];
     gb[j] = go[ROW_B * pixels + p];
@@ -97,34 +140,62 @@ composite_bwd_kernel(const float* __restrict__ table,
     S[j] = r_tot - gt;
   }
 
+  // Ids of chunks 0 and 1, rows of chunk 0.
+  stage_gids(gid_sorted, c0, start, end, chunk, gids);
+  if (nproc > 1)
+    stage_gids(gid_sorted, c0 + chunk, start, end, chunk, gids + chunk);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  stage_rows(table, gids, c0, start, end, chunk, rows);
+  cp_async_commit();
+
   for (int i = 0; i < nproc; ++i) {
     const int base = c0 + i * chunk;
-    __syncthreads();  // previous chunk's shared data fully consumed
-    load_chunk(table, gid_sorted, base, start, end, chunk, s, s_gid);
-    for (int x = threadIdx.x; x < NACC * chunk; x += THREADS) acc[x] = 0.f;
+    // Chunk i has landed for every thread, and every thread is done with
+    // chunk i - 1 (its epilogue included), whose buffers now take the rows
+    // of chunk i + 1 and the ids of chunk i + 2.
+    cp_async_wait_all();
+    __syncthreads();
+    const float4* cur = rows + (i & 1) * ROW_F4 * chunk;
+    const int* cur_gid = gids + (i % 3) * chunk;
+    if (i + 1 < nproc)
+      stage_rows(table, gids + ((i + 1) % 3) * chunk, base + chunk, start,
+                 end, chunk, rows + ((i + 1) & 1) * ROW_F4 * chunk);
+    if (i + 2 < nproc)
+      stage_gids(gid_sorted, base + 2 * chunk, start, end, chunk,
+                 gids + ((i + 2) % 3) * chunk);
+    cp_async_commit();
+    bound_rows(rows + (i & 1) * ROW_F4 * chunk, chunk, tile, px0, py0);
     __syncthreads();
 #pragma unroll
     for (int j = 0; j < MAX_PPT; ++j) P[j] = 1.f;
     for (int k = 0; k < chunk; ++k) {
-      const float mx = s[0 * chunk + k], my = s[1 * chunk + k];
-      const float ca = s[2 * chunk + k], cbb = s[3 * chunk + k];
-      const float cc = s[4 * chunk + k], opa = s[5 * chunk + k];
-      const float r = s[6 * chunk + k], g = s[7 * chunk + k];
-      const float b = s[8 * chunk + k], d = s[9 * chunk + k];
+      if (!((pair_mask(cur, k) >> warp) & 1u)) continue;  // warp-uniform
+      const float4 a4 = cur[k * ROW_F4], b4 = cur[k * ROW_F4 + 1],
+                   c4 = cur[k * ROW_F4 + 2];
+      const float mx = a4.x, my = a4.y, ca = a4.z, cbb = a4.w;
+      const float cc = b4.x, opa = b4.y, r = b4.z, g = b4.w;
+      const float b = c4.x, d = c4.y, s_cut = c4.z;
       float v[NACC];
 #pragma unroll
       for (int c = 0; c < NACC; ++c) v[c] = 0.f;
       bool any = false;
 #pragma unroll
       for (int j = 0; j < MAX_PPT; ++j) {
-        if (!has[j]) continue;
-        const Alpha a = alpha_at(px[j], py[j], mx, my, ca, cbb, cc, opa);
-        if (!a.ok) continue;
+        if (!((pm.has >> j) & 1u)) continue;
+        const float dx = __fsub_rn(px, mx), dy = __fsub_rn(py[j], my);
+        const float sigma = sigma_at(dx, dy, ca, cbb, cc);
+        if (!(sigma <= s_cut)) continue;  // cannot reach alpha >= 1/255
+        const float e = expf(-sigma);
+        const float araw = __fmul_rn(opa, e);
+        if (!(sigma >= 0.f && araw >= ALPHA_MIN)) continue;
+        const float alpha = fminf(araw, ALPHA_MAX);
         any = true;
-        const float om = 1.f - a.alpha;
+        const float om = 1.f - alpha;
         const float inv1m = 1.f / om;
         const float tk = T[j] * P[j];
-        const float w = a.alpha * tk;
+        const float w = alpha * tk;
         const float q = r * gr[j] + g * gg[j] + b * gb[j] + d * gd[j];
         const float u = q * w;
         // Kahan: S -= u, so S = r_tot - gt - sum_{j<=k} u_j = r_in[k].
@@ -137,62 +208,64 @@ composite_bwd_kernel(const float* __restrict__ table,
         v[7] += w * gg[j];
         v[8] += w * gb[j];
         v[9] += w * gd[j];
-        if (a.araw <= ALPHA_MAX) {  // unclamped: alpha = opa * e
-          const float de = dalpha * a.e;
+        if (araw <= ALPHA_MAX) {  // unclamped: alpha = opa * e
+          const float de = dalpha * e;
           const float dsig = de * (-opa);
-          const float dsx = dsig * a.dx, dsy = dsig * a.dy;
+          const float dsx = dsig * dx, dsy = dsig * dy;
           v[0] += dsx;
           v[1] += dsy;
-          v[2] += dsx * a.dx;
-          v[3] += dsx * a.dy;
-          v[4] += dsy * a.dy;
+          v[2] += dsx * dx;
+          v[3] += dsx * dy;
+          v[4] += dsy * dy;
           v[5] += de;
         }
         P[j] *= om;
       }
+      // Every warp whose bit is set fills its slot, so the block sum below
+      // reads exactly those slots.
+      float* slot = part + ((size_t)warp * chunk + k) * NACC;
       if (__any_sync(FULL, any)) {  // warp-uniform
-#pragma unroll
-        for (int c = 0; c < NACC; ++c) {
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1)
-            v[c] += __shfl_down_sync(FULL, v[c], off);
-        }
-        if (lane == 0) {
-#pragma unroll
-          for (int c = 0; c < NACC; ++c)
-            if (v[c] != 0.f) atomicAdd(&acc[c * chunk + k], v[c]);
-        }
+        const float f = warp_sum10(v, lane);
+        if (!(lane & 1) && reduced_valid(lane)) slot[reduced_index(lane)] = f;
+      } else if (!(lane & 1) && reduced_valid(lane)) {
+        slot[reduced_index(lane)] = 0.f;
       }
     }
 #pragma unroll
     for (int j = 0; j < MAX_PPT; ++j) T[j] *= P[j];
     __syncthreads();
     for (int k = threadIdx.x; k < chunk; k += THREADS) {
-      const int gid = s_gid[k];
-      if (gid < 0) continue;  // row outside this tile's range
-      const float sx = acc[0 * chunk + k], sy = acc[1 * chunk + k];
-      const float ca = s[2 * chunk + k], cbb = s[3 * chunk + k];
-      const float cc = s[4 * chunk + k];
+      const int idx = base + k;
+      if (idx < start || idx >= end) continue;  // row outside the tile's range
+      const unsigned mask = pair_mask(cur, k);
+      if (!mask) continue;  // no warp evaluated the pair: zero gradient
+      float sum[NACC];
+#pragma unroll
+      for (int c = 0; c < NACC; ++c) sum[c] = 0.f;
+      for (int w = 0; w < WARPS; ++w) {  // fixed order: deterministic
+        if (!((mask >> w) & 1u)) continue;
+        const float* slot = part + ((size_t)w * chunk + k) * NACC;
+#pragma unroll
+        for (int c = 0; c < NACC; ++c) sum[c] += slot[c];
+      }
+      const float ca = cur[k * ROW_F4].z, cbb = cur[k * ROW_F4].w;
+      const float cc = cur[k * ROW_F4 + 1].x;
+      const float sx = sum[0], sy = sum[1];
       const float dmx = -(2.f * ca * sx + cbb * sy);
       const float dmy = -(2.f * cc * sy + cbb * sx);
-      float* row = dtable + (size_t)gid * PACK_COLS;
-      const float vals[NATTR] = {dmx,
-                                 dmy,
-                                 acc[2 * chunk + k],
-                                 acc[3 * chunk + k],
-                                 acc[4 * chunk + k],
-                                 acc[5 * chunk + k],
-                                 acc[6 * chunk + k],
-                                 acc[7 * chunk + k],
-                                 acc[8 * chunk + k],
-                                 acc[9 * chunk + k]};
-#pragma unroll
-      for (int c = 0; c < NATTR; ++c)
-        if (vals[c] != 0.f) atomicAdd(&row[c], vals[c]);
-      if (want_absgrad) {
-        if (dmx != 0.f) atomicAdd(&absgrad[(size_t)gid * 2 + 0], fabsf(dmx));
-        if (dmy != 0.f) atomicAdd(&absgrad[(size_t)gid * 2 + 1], fabsf(dmy));
-      }
+      const int gid = cur_gid[k];
+      // Rows are 64 bytes, so columns 0-3, 4-7 and 8-9 are 16- and 8-byte
+      // aligned vectors (the wrapper checks the base alignment).
+      float4* row = reinterpret_cast<float4*>(dtable + (size_t)gid * PACK_COLS);
+      const float4 v0 = make_float4(dmx, dmy, sum[2], sum[3]);
+      const float4 v1 = make_float4(sum[4], sum[5], sum[6], sum[7]);
+      if (any4(v0)) atomicAdd(row, v0);
+      if (any4(v1)) atomicAdd(row + 1, v1);
+      if (sum[8] != 0.f || sum[9] != 0.f)
+        atomicAdd(reinterpret_cast<float2*>(row + 2), make_float2(sum[8], sum[9]));
+      if (want_absgrad && (dmx != 0.f || dmy != 0.f))
+        atomicAdd(reinterpret_cast<float2*>(absgrad + (size_t)gid * 2),
+                  make_float2(fabsf(dmx), fabsf(dmy)));
     }
   }
 }
@@ -200,17 +273,21 @@ composite_bwd_kernel(const float* __restrict__ table,
 }  // namespace
 
 extern "C" int composite_bwd(const void* table, const void* gid_sorted,
-                             const void* tile_starts, const void* fwd_out,
-                             const void* g_out, void* dtable, void* absgrad,
-                             int num_tiles, int ntx, int nty, int tile,
-                             int chunk, int want_absgrad, void* stream) {
+                             const void* tile_starts, const void* order,
+                             const void* fwd_out, const void* g_out,
+                             void* dtable, void* absgrad, int num_tiles,
+                             int ntx, int nty, int tile, int chunk,
+                             int want_absgrad, void* stream) {
   if (num_tiles > 0) {
-    const size_t smem =
-        sizeof(float) * (NATTR + NACC) * chunk + sizeof(int) * chunk;
+    const size_t smem = sizeof(float4) * 2 * ROW_F4 * chunk +
+                        sizeof(int) * 3 * chunk +
+                        sizeof(float) * WARPS * NACC * chunk;
+    const cudaError_t err = allow_smem(composite_bwd_kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
     composite_bwd_kernel<<<num_tiles, THREADS, smem,
                            static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(table), static_cast<const int*>(gid_sorted),
-        static_cast<const int*>(tile_starts),
+        static_cast<const int*>(tile_starts), static_cast<const int*>(order),
         static_cast<const float*>(fwd_out), static_cast<const float*>(g_out),
         static_cast<float*>(dtable), static_cast<float*>(absgrad), ntx, nty,
         tile, chunk, want_absgrad);

@@ -17,78 +17,116 @@
 // Output [num_tiles, 8, tile*tile] f32: r, g, b, acc = 1 - T, depth, T, nproc.
 //
 // Bound on this card: FP32 arithmetic. At the 300k-gaussian flagship
-// (1296x840, tile 32, 1.35M pairs) the processed chunks hold 612M
-// pair-pixel evaluations of 16 operations (exp included), 156M of which
-// composite (12 more), against ~45 MB of table, index and output traffic:
-// 0.17 ms at 67 TFLOP/s, where this kernel took 1.39 ms on an H100 80GB
-// HBM3 at 700 W (chip_smoke.py).
+// (1296x840, tile 32, 1.35M pairs) the processed chunks hold 612M in-range
+// pair-pixels, of which 200M lie inside their pair's bounding box (16
+// operations each, exp included) and 156M composite (12 more): 0.076 ms
+// at 67 TFLOP/s. Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py):
+// 0.68-0.70 ms, against 1.37-1.40 ms for the PR 1 design.
 // Design: one block of 256 threads per tile, 4 pixels per thread kept in
-// registers; each chunk's pair rows are gathered once into shared memory
-// (float4 loads of the 64-byte table rows) and read back as broadcasts by
-// every thread, so each row is fetched from memory once per tile and the
-// inner loop is register arithmetic. Later work: per-pixel exit, cp.async
-// double buffering of the next chunk, a cheaper exp.
+// registers, each warp on a 16x8 pixel rectangle.
+// - Each chunk's rows are staged with cp.async, double-buffered, and read
+//   back as three broadcast 16-byte loads per pair.
+// - At staging, one thread per pair computes conservative bounds
+//   (composite_common.cuh::pair_bounds): a warp whose rectangle misses the
+//   pair's box skips it with a warp-uniform branch, and a pixel whose
+//   sigma exceeds the pair's cut skips expf. Both skip only pixels that
+//   would not composite, so every evaluated pixel runs PR 1's operations
+//   in PR 1's order and the outputs are unchanged.
+// - Blocks take tiles longest first (`order`, from the wrapper), so a long
+//   tile does not start in the last of the 2.8 waves.
+// - __launch_bounds__(256, 3) holds 80 registers for 3 blocks per SM; the
+//   few spilled words sit outside the per-pair loop.
 #include "composite_common.cuh"
 
 namespace {
 
 using namespace gs;
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 3)
 composite_fwd_kernel(const float* __restrict__ table,
                      const int* __restrict__ gid_sorted,
                      const int* __restrict__ tile_starts,
+                     const int* __restrict__ order,
                      float* __restrict__ out, int ntx, int nty, int tile,
                      int chunk) {
-  extern __shared__ float s[];  // [NATTR][chunk]
-  const int t = blockIdx.x;
+  extern __shared__ float4 smem4[];
+  float4* rows = smem4;  // [2][chunk][ROW_F4], double-buffered
+  int* gids = reinterpret_cast<int*>(rows + 2 * ROW_F4 * chunk);  // [3][chunk]
+
+  const int t = order[blockIdx.x];
   const int start = tile_starts[t], end = tile_starts[t + 1];
   const int c0 = (start / chunk) * chunk;
   const int nchunks = end > start ? (end - c0 + chunk - 1) / chunk : 0;
   const int pixels = tile * tile;
-  const int ppt = (pixels + THREADS - 1) / THREADS;
   const int tloc = t % (ntx * nty);
   const int px0 = (tloc % ntx) * tile, py0 = (tloc / ntx) * tile;
+  const int warp = threadIdx.x >> 5;
+  const PixelMap pm = pixel_map(tile);
+  const float px = (float)(px0 + pm.lx) + 0.5f;
 
-  float px[MAX_PPT], py[MAX_PPT], T[MAX_PPT], P[MAX_PPT];
+  float py[MAX_PPT], T[MAX_PPT], P[MAX_PPT];
   float cr[MAX_PPT], cg[MAX_PPT], cb[MAX_PPT], cd[MAX_PPT];
-  bool has[MAX_PPT];
 #pragma unroll
   for (int j = 0; j < MAX_PPT; ++j) {
-    const int p = pixel_index(j, ppt);
-    has[j] = j < ppt && p < pixels;
-    px[j] = (float)(px0 + p % tile) + 0.5f;
-    py[j] = (float)(py0 + p / tile) + 0.5f;
+    py[j] = (float)(py0 + pm.ly0 + j * pm.dly) + 0.5f;
     T[j] = 1.f;
     cr[j] = cg[j] = cb[j] = cd[j] = 0.f;
+  }
+
+  if (nchunks > 0) {  // block-uniform: ids of chunks 0 and 1, rows of 0
+    stage_gids(gid_sorted, c0, start, end, chunk, gids);
+    if (nchunks > 1)
+      stage_gids(gid_sorted, c0 + chunk, start, end, chunk, gids + chunk);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    stage_rows(table, gids, c0, start, end, chunk, rows);
+    cp_async_commit();
   }
 
   int i = 0;
   bool alive = true;  // block-uniform: set by __syncthreads_or
   while (i < nchunks && alive) {
-    __syncthreads();  // every thread is done reading the previous chunk
-    load_chunk(table, gid_sorted, c0 + i * chunk, start, end, chunk, s,
-               nullptr);
+    // Chunk i has landed for every thread, and every thread is done with
+    // chunk i - 1, whose buffers now take the rows of chunk i + 1 and the
+    // ids of chunk i + 2.
+    cp_async_wait_all();
+    __syncthreads();
+    const float4* cur = rows + (i & 1) * ROW_F4 * chunk;
+    if (i + 1 < nchunks)
+      stage_rows(table, gids + ((i + 1) % 3) * chunk, c0 + (i + 1) * chunk,
+                 start, end, chunk, rows + ((i + 1) & 1) * ROW_F4 * chunk);
+    if (i + 2 < nchunks)
+      stage_gids(gid_sorted, c0 + (i + 2) * chunk, start, end, chunk,
+                 gids + ((i + 2) % 3) * chunk);
+    cp_async_commit();
+    bound_rows(rows + (i & 1) * ROW_F4 * chunk, chunk, tile, px0, py0);
     __syncthreads();
 #pragma unroll
     for (int j = 0; j < MAX_PPT; ++j) P[j] = 1.f;
     for (int k = 0; k < chunk; ++k) {
-      const float mx = s[0 * chunk + k], my = s[1 * chunk + k];
-      const float ca = s[2 * chunk + k], cbb = s[3 * chunk + k];
-      const float cc = s[4 * chunk + k], opa = s[5 * chunk + k];
-      const float r = s[6 * chunk + k], g = s[7 * chunk + k];
-      const float b = s[8 * chunk + k], d = s[9 * chunk + k];
+      if (!((pair_mask(cur, k) >> warp) & 1u)) continue;  // warp-uniform
+      const float4 a = cur[k * ROW_F4], b = cur[k * ROW_F4 + 1],
+                   c = cur[k * ROW_F4 + 2];
+      const float mx = a.x, my = a.y, ca = a.z, cbb = a.w;
+      const float cc = b.x, opa = b.y, r = b.z, g = b.w;
+      const float bl = c.x, d = c.y, s_cut = c.z;
 #pragma unroll
       for (int j = 0; j < MAX_PPT; ++j) {
-        if (!has[j]) continue;
-        const Alpha a = alpha_at(px[j], py[j], mx, my, ca, cbb, cc, opa);
-        if (!a.ok) continue;
-        const float w = a.alpha * (T[j] * P[j]);
+        if (!((pm.has >> j) & 1u)) continue;
+        const float dx = __fsub_rn(px, mx), dy = __fsub_rn(py[j], my);
+        const float sigma = sigma_at(dx, dy, ca, cbb, cc);
+        if (!(sigma <= s_cut)) continue;  // cannot reach alpha >= 1/255
+        const float e = expf(-sigma);
+        const float araw = __fmul_rn(opa, e);
+        if (!(sigma >= 0.f && araw >= ALPHA_MIN)) continue;
+        const float alpha = fminf(araw, ALPHA_MAX);
+        const float w = alpha * (T[j] * P[j]);
         cr[j] += w * r;
         cg[j] += w * g;
-        cb[j] += w * b;
+        cb[j] += w * bl;
         cd[j] += w * d;
-        P[j] *= 1.f - a.alpha;
+        P[j] *= 1.f - alpha;
       }
     }
 #pragma unroll
@@ -96,15 +134,17 @@ composite_fwd_kernel(const float* __restrict__ table,
     ++i;
     bool mine = false;
 #pragma unroll
-    for (int j = 0; j < MAX_PPT; ++j) mine |= has[j] && T[j] > TERM_EPS;
+    for (int j = 0; j < MAX_PPT; ++j)
+      mine |= ((pm.has >> j) & 1u) && T[j] > TERM_EPS;
     alive = __syncthreads_or(mine) != 0;
   }
+  cp_async_wait_all();  // no copy may land after the block has exited
 
   float* o = out + (size_t)t * OUT_ROWS * pixels;
 #pragma unroll
   for (int j = 0; j < MAX_PPT; ++j) {
-    if (!has[j]) continue;
-    const int p = pixel_index(j, ppt);
+    if (!((pm.has >> j) & 1u)) continue;
+    const int p = (pm.ly0 + j * pm.dly) * tile + pm.lx;
     o[ROW_R * pixels + p] = cr[j];
     o[ROW_G * pixels + p] = cg[j];
     o[ROW_B * pixels + p] = cb[j];
@@ -119,16 +159,19 @@ composite_fwd_kernel(const float* __restrict__ table,
 }  // namespace
 
 extern "C" int composite_fwd(const void* table, const void* gid_sorted,
-                             const void* tile_starts, void* out,
-                             int num_tiles, int ntx, int nty, int tile,
-                             int chunk, void* stream) {
+                             const void* tile_starts, const void* order,
+                             void* out, int num_tiles, int ntx, int nty,
+                             int tile, int chunk, void* stream) {
   if (num_tiles > 0) {
-    const size_t smem = sizeof(float) * NATTR * chunk;
+    const size_t smem =
+        sizeof(float4) * 2 * ROW_F4 * chunk + sizeof(int) * 3 * chunk;
+    const cudaError_t err = allow_smem(composite_fwd_kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
     composite_fwd_kernel<<<num_tiles, THREADS, smem,
                            static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(table), static_cast<const int*>(gid_sorted),
-        static_cast<const int*>(tile_starts), static_cast<float*>(out), ntx,
-        nty, tile, chunk);
+        static_cast<const int*>(tile_starts), static_cast<const int*>(order),
+        static_cast<float*>(out), ntx, nty, tile, chunk);
   }
   return static_cast<int>(cudaGetLastError());
 }

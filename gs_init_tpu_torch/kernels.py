@@ -38,15 +38,15 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNELS = {
     "composite_fwd": (
         "composite_fwd.cu",
-        # table, gid_sorted, tile_starts, out,
+        # table, gid_sorted, tile_starts, order, out,
         # num_tiles, ntx, nty, tile, chunk, stream
-        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     ),
     "composite_bwd": (
         "composite_bwd.cu",
-        # table, gid_sorted, tile_starts, fwd_out, g_out, dtable, absgrad,
-        # num_tiles, ntx, nty, tile, chunk, want_absgrad, stream
-        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        # table, gid_sorted, tile_starts, order, fwd_out, g_out, dtable,
+        # absgrad, num_tiles, ntx, nty, tile, chunk, want_absgrad, stream
+        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     ),
     "scan_probe": (
         "scan_probe.cu",

@@ -19,6 +19,12 @@ walk the same chunks vectorised over tiles ([tiles, chunk, pixels] per
 chunk index with a per-tile live mask); the plain backward is the explicit
 replay, not autograd through the plain forward.
 
+``pair_bounds`` mirrors the bounds the CUDA kernels compute for each
+staged pair (a cut on sigma and a bounding box), which let them skip work
+whose result is known to be "not composited"; the tests and
+``chip_smoke.py`` check it against ``_alpha_terms``. The kernels take the
+tiles longest first (``tile_order``); outputs land at the same addresses.
+
 ``scan_probe`` (``csrc/scan_probe.cu``) ports the JAX package's third
 Pallas kernel, the scan probe that ``_scan_mode`` runs once before the
 first compositor trace; ``check_scan`` runs it once per train step
@@ -40,7 +46,12 @@ OUT_ROWS = 8
 ROW_R, ROW_G, ROW_B, ROW_ACC, ROW_DEPTH, ROW_T, ROW_NPROC = 0, 1, 2, 3, 4, 5, 6
 NATTR = 10  # table columns the compositor reads: mx my ca cb cc opa r g b d
 MAX_TILE_PIXELS = 1024  # 256 threads x 4 pixels in the CUDA kernels
-MAX_CHUNK = 512  # the backward's shared staging, 84 B per pair, stays under 48 KB
+# Shared memory of a block per pair of a chunk: two staged 48-byte rows
+# (double buffering) and three pair ids; the backward adds eight warps' ten
+# partial sums.
+FWD_SMEM_PER_PAIR = 2 * 48 + 3 * 4
+BWD_SMEM_PER_PAIR = FWD_SMEM_PER_PAIR + 8 * 10 * 4
+MAX_CHUNK = 512  # 512 x 428 B = 219,136 B, within the 232,448 B a block may use
 
 
 # ----------------------------------------------------------------- helpers
@@ -97,6 +108,41 @@ def _alpha_terms(rows, inrange, px, py):
     alpha = torch.where(ok, torch.clamp(araw, max=ALPHA_MAX), 0.0)
     unclamped = ok & (araw <= ALPHA_MAX)
     return alpha, dict(dx=dx, dy=dy, e=e, unclamped=unclamped, ca=ca, cb=cb, cc=cc, opa=opa)
+
+
+def pair_bounds(rows: torch.Tensor):
+    """The CUDA kernels' bounds of each pair (``csrc/composite_common.cuh``
+    ``pair_bounds``), from rows [..., >= 6] f32 (mx, my, ca, cb, cc, opa).
+
+    Returns ``(s_cut, hx, hy)``: a pixel at which ``_alpha_terms`` gives
+    ``ok`` has sigma <= s_cut (f32) and lies within hx, hy (f64) of the
+    mean. A pair with opacity below 1/255 never composites: s_cut = -inf,
+    hx = hy = -1. Non-finite inputs give s_cut = +inf; they and
+    non-positive or near-degenerate conics give an unbounded box (inf). The
+    source comment of the CUDA function argues the margins."""
+    mx, my, ca, cb, cc, opa = (rows[..., c] for c in range(6))
+    finite = torch.stack([mx, my, ca, cb, cc, opa]).isfinite().all(dim=0)
+    s = torch.log(255.0 * opa)
+    s_cut = s + 1e-3 * s.abs() + 1e-3
+    a, b, c = ca.double(), cb.double(), cc.double()
+    d = a * c - 0.25 * b * b
+    boxed = finite & (a > 0) & (c > 0) & (d > 1e-5 * a * c)  # else degenerate: no box
+    sb = s_cut.double() * (1.0 + 4e-6 * (a * c / d))
+    hx = torch.sqrt(sb * c / d) * (1.0 + 1e-5) + 1e-3
+    hy = torch.sqrt(sb * a / d) * (1.0 + 1e-5) + 1e-3
+    never = ~(opa >= ALPHA_MIN)
+    inf = float("inf")
+    s_cut = torch.where(never, -inf, torch.where(finite, s_cut, inf))
+    hx = torch.where(never, -1.0, torch.where(boxed, hx, inf))
+    hy = torch.where(never, -1.0, torch.where(boxed, hy, inf))
+    return s_cut, hx, hy
+
+
+def tile_order(counts: torch.Tensor) -> torch.Tensor:
+    """Tile ids by descending ``counts`` (ties in tile order), int32: block
+    b of a compositor launch works on tile ``order[b]``, so the longest
+    tiles start first and a long tile does not start in the last wave."""
+    return torch.argsort(counts, descending=True, stable=True).to(torch.int32)
 
 
 def _exclusive_cumprod(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
@@ -268,7 +314,7 @@ def _check(table, gid_sorted, tile_starts, num_tiles, tile, chunk):
         if x.device != table.device:
             raise ValueError(f"{name} is on {x.device}, table on {table.device}")
     if table.data_ptr() % 16:
-        raise ValueError("table must be 16-byte aligned (float4 row loads)")
+        raise ValueError("table must be 16-byte aligned (16-byte row copies)")
 
 
 def _stream(t: torch.Tensor):
@@ -284,8 +330,9 @@ def composite_fwd(table, gid_sorted, tile_starts, num_tiles, ntx, nty, tile, chu
     _check(table, gid_sorted, tile_starts, num_tiles, tile, chunk)
     fn = kernels.function("composite_fwd")
     out = torch.empty((num_tiles, OUT_ROWS, tile * tile), dtype=torch.float32, device=table.device)
+    order = tile_order(_chunk_windows(tile_starts, chunk)[3])
     code = fn(
-        table.data_ptr(), gid_sorted.data_ptr(), tile_starts.data_ptr(), out.data_ptr(),
+        table.data_ptr(), gid_sorted.data_ptr(), tile_starts.data_ptr(), order.data_ptr(), out.data_ptr(),
         num_tiles, ntx, nty, tile, chunk, _stream(table),
     )
     kernels.check("composite_fwd", code)
@@ -312,8 +359,12 @@ def composite_bwd(
     fn = kernels.function("composite_bwd")
     dtable = torch.zeros_like(table)
     absgrad = torch.zeros((table.shape[0], 2), dtype=torch.float32, device=table.device)
+    if dtable.data_ptr() % 16 or absgrad.data_ptr() % 16:
+        raise ValueError("dtable and absgrad must be 16-byte aligned (vector atomics)")
+    # Chunks the backward replays per tile: row 6 of the forward's output.
+    order = tile_order(fwd_out[:, ROW_NPROC, 0])
     code = fn(
-        table.data_ptr(), gid_sorted.data_ptr(), tile_starts.data_ptr(),
+        table.data_ptr(), gid_sorted.data_ptr(), tile_starts.data_ptr(), order.data_ptr(),
         fwd_out.data_ptr(), g_out.data_ptr(), dtable.data_ptr(), absgrad.data_ptr(),
         num_tiles, ntx, nty, tile, chunk, int(want_absgrad), _stream(table),
     )

@@ -190,3 +190,83 @@ def test_scan_probe_matches_pallas(rng, kind):
     np.testing.assert_allclose(n(q), n(jq), rtol=1e-5, atol=0, err_msg="prefix product")
     np.testing.assert_array_equal(n(s)[0], 0.0)
     np.testing.assert_array_equal(n(q)[0], 1.0)
+
+
+def _bounds_case(rng, kind, n=192):
+    """Pairs [n, 6] (mx, my, 0.5a, b, 0.5c, opacity) around a 32x32 tile at
+    the origin: conics from covariances with eigenvalues lam and lam *
+    ratio (px^2) at random angles."""
+    lo, hi, rmax = {
+        "random": (0.3, 1e3, 1e2), "near_degenerate": (0.3, 1e2, 1e6),
+        "opacity_edges": (0.3, 1e3, 1e2), "huge": (1e4, 1e7, 1e3), "tiny": (1e-4, 0.3, 1e2),
+    }[kind]
+    lam1 = np.exp(rng.uniform(np.log(lo), np.log(hi), n))
+    lam2 = lam1 * np.exp(rng.uniform(0.0, np.log(rmax), n))
+    th = rng.uniform(0.0, np.pi, n)
+    c, s = np.cos(th), np.sin(th)
+    a = c * c / lam1 + s * s / lam2
+    cc = s * s / lam1 + c * c / lam2
+    b = c * s * (1.0 / lam1 - 1.0 / lam2)
+    opa = rng.uniform(0.0, 1.0, n)
+    if kind == "opacity_edges":
+        near_min = rng.uniform(size=n) < 0.5
+        opa = np.where(near_min, prast.ALPHA_MIN * (1.0 + rng.uniform(-1e-3, 1e-3, n)),
+                       1.0 - rng.uniform(0.0, 1e-3, n))
+    if kind == "tiny":  # near pixel centres, so that some composite
+        mx = rng.integers(0, 32, n) + 0.5 + rng.uniform(-0.05, 0.05, n)
+        my = rng.integers(0, 32, n) + 0.5 + rng.uniform(-0.05, 0.05, n)
+    else:
+        mx, my = rng.uniform(-24.0, 56.0, n), rng.uniform(-24.0, 56.0, n)
+    return np.stack([mx, my, 0.5 * a, 2.0 * b, 0.5 * cc, opa], -1).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["random", "near_degenerate", "opacity_edges", "huge", "tiny"])
+def test_pair_bounds_contain_composited_pixels(kind):
+    """Every pixel at which the exact alpha test passes has sigma <= s_cut
+    and lies inside the pair's box (pair_bounds, the CUDA kernels' cull)."""
+    rng = np.random.default_rng(["random", "near_degenerate", "opacity_edges", "huge", "tiny"].index(kind))
+    rows = t(_bounds_case(rng, kind))[None]  # [1, n, 6]
+    col = torch.arange(32, dtype=torch.float32) + 0.5
+    px = col[None, :].expand(32, 32).reshape(1, 1, -1)
+    py = col[:, None].expand(32, 32).reshape(1, 1, -1)
+    alpha, aux = prast._alpha_terms(rows, torch.ones(rows.shape[:2], dtype=torch.bool), px, py)
+    ok = alpha > 0
+    s_cut, hx, hy = prast.pair_bounds(rows)
+    dx, dy = aux["dx"], aux["dy"]
+    sigma = aux["ca"] * dx * dx + aux["cc"] * dy * dy + aux["cb"] * dx * dy
+    assert int(ok.sum()) > 0
+    assert not bool((ok & (sigma > s_cut[..., None])).any())
+    assert not bool((ok & ((px.double() - rows[..., 0:1].double()).abs() > hx[..., None])).any())
+    assert not bool((ok & ((py.double() - rows[..., 1:2].double()).abs() > hy[..., None])).any())
+    if kind in ("random", "tiny"):  # the box does cull
+        inside = ((px.double() - rows[..., 0:1].double()).abs() <= hx[..., None]) & (
+            (py.double() - rows[..., 1:2].double()).abs() <= hy[..., None])
+        assert int(inside.sum()) < inside.numel()
+
+
+def test_pair_bounds_special_rows():
+    """Opacity below 1/255 (and zeroed out-of-range rows) never composite;
+    non-finite or degenerate conics get an unbounded box."""
+    nan, inf = float("nan"), float("inf")
+    rows = torch.tensor([
+        [5.0, 5.0, 0.1, 0.0, 0.1, 0.5 / 255.0],  # opacity below 1/255
+        [0.0, 0.0, 0.0, 0.0, 0.0, 0.0],  # a zeroed row
+        [nan, 5.0, 0.1, 0.0, 0.1, 0.5],  # non-finite mean
+        [5.0, 5.0, 0.1, 0.2, 0.1, 0.5],  # D = 0: degenerate
+        [5.0, 5.0, -0.1, 0.0, 0.1, 0.5],  # not positive definite
+        [5.0, 5.0, 0.5, 0.0, 0.5, 1.0],  # ordinary: sigma <= ln 255
+    ])
+    s_cut, hx, hy = prast.pair_bounds(rows)
+    assert s_cut[0] == s_cut[1] == -inf and hx[0] == hy[1] == -1.0
+    assert s_cut[2] == inf and hx[2] == hy[2] == inf
+    assert torch.isfinite(s_cut[3:]).all() and (hx[3:5] == inf).all()
+    np.testing.assert_allclose(float(s_cut[5]), np.log(255.0), rtol=2e-3)
+    np.testing.assert_allclose(float(hx[5]), np.sqrt(np.log(255.0) / 0.5), rtol=2e-3)
+
+
+def test_tile_order_longest_first():
+    """Tiles by descending count, ties in tile order."""
+    counts = torch.tensor([2, 5, 0, 5, 1, 2])
+    order = prast.tile_order(counts)
+    assert order.dtype == torch.int32
+    assert order.tolist() == [1, 3, 0, 5, 4, 2]
