@@ -11,8 +11,9 @@ no result line.
    gs_init_tpu_torch/csrc/ built with nvcc for sm_90a, one process each,
    timed.
 2. Kernel against plain on the card: the compositor forward and backward
-   on a mid-size scene (20k gaussians, 640x480, tile 32) and on the deep
-   stack of 96 gaussians at opacity 0.95 (tile 16), with a count of the
+   on a mid-size scene (20k gaussians, 640x480, tile 32, and again at
+   tiles 8 and 24) and on the deep stack of 96 gaussians at opacity 0.95
+   (tile 16, and again at tile 8), with a count of the
    composited pair-pixels that fall outside the kernels' pair bounds
    (ops/rasterize.pair_bounds), which must be 0; the scan probe on its
    [128, 128] inputs. Then one train step of a small scene on the card
@@ -51,17 +52,19 @@ import numpy as np
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
-# FP32 operations per pair-pixel, counted from the CUDA sources:
-# every evaluated pair-pixel (one inside its pair's bounding box) runs
-# alpha_at (2 sub, 6 mul, 2 add for sigma, exp, 1 mul, 2 compares,
-# 1 min = 16); a pair that composites adds, in the
-# forward, w = alpha (T P) (2), four colour/depth FMAs (8) and P *= 1 - alpha
-# (2); in the backward 1 - alpha, 1/(1 - alpha), T_k, w (4), q (7), u and
-# the Kahan carry (5), dalpha (3), four colour FMAs (8) and P (1); an
-# unclamped pair adds de, dsig, dsx, dsy and six moment sums (13).
-OPS_EVAL = 16
-OPS_FWD_COMPOSITED = 12
-OPS_BWD_COMPOSITED = 28
+# FP32 operations per pair-pixel, counted from the CUDA sources' per-pixel
+# loops: every evaluated pair-pixel (one inside its pair's bounding box)
+# computes sigma and tests it against the pair's cut (2 sub, 6 mul, 2 add,
+# 1 compare = 11); one with sigma <= s_cut goes on to alpha (negate, exp,
+# 1 mul, 2 compares = 5); a pair-pixel that composites clamps alpha (1 min) and
+# adds, in the forward, w = alpha (T P) (2), four colour/depth FMAs (8) and
+# P *= 1 - alpha (2); in the backward 1 - alpha, 1/(1 - alpha), T_k, w (4),
+# q (7), u and the Kahan carry (5), dalpha (3), four colour FMAs (8) and
+# P (1); an unclamped pair adds de, dsig, dsx, dsy and six moment sums (13).
+OPS_SIGMA = 11
+OPS_ALPHA = 5
+OPS_FWD_COMPOSITED = 13
+OPS_BWD_COMPOSITED = 29
 OPS_BWD_UNCLAMPED = 13
 
 KERNELS = {
@@ -148,9 +151,10 @@ def build_kernels():
 # ------------------------------------------------------------------ phase 2
 
 
-def compositor_case(dev, kind, seed=0):
-    """Project, bin and pack a random scene; returns the compositor's
-    arguments and a random output cotangent."""
+def compositor_case(dev, kind, tile=None, seed=0):
+    """Project, bin and pack a random scene, at the kind's own tile size
+    unless `tile` is given; returns the compositor's arguments and a random
+    output cotangent."""
     import torch
     from gs_init_tpu_torch.ops.projection import project_gaussians
     from gs_init_tpu_torch.ops.tiles import bin_gaussians, pack_table
@@ -160,7 +164,8 @@ def compositor_case(dev, kind, seed=0):
         # tests/test_rasterize_pallas.py's early-termination stack, with the
         # wider footprint of tests/torch_parity.py so that whole tiles
         # saturate and stop before their last chunk.
-        n, width, height, tile, cap = 96, 64, 48, 16, 8192
+        n, width, height, cap = 96, 64, 48, 8192
+        tile = tile or 16
         means = np.zeros((n, 3))
         means[:, 0] = rng.uniform(-0.1, 0.1, n)
         means[:, 1] = rng.uniform(-0.1, 0.1, n)
@@ -170,7 +175,9 @@ def compositor_case(dev, kind, seed=0):
         opac = np.full((n,), 0.95)
         focal = 50.0
     else:  # mid-size scene
-        n, width, height, tile, cap = 20_000, 640, 480, 32, 1 << 18
+        n, width, height = 20_000, 640, 480
+        tile = tile or 32
+        cap = 1 << 18 if tile == 32 else 1 << 20  # a smaller tile makes more pairs
         means = np.stack(
             [rng.uniform(-2, 2, n), rng.uniform(-1.5, 1.5, n), rng.uniform(3, 9, n)], -1
         )
@@ -496,12 +503,14 @@ def capture_inputs(ctx):
 
     detach = lambda args: tuple(a.detach() if hasattr(a, "detach") else a for a in args)
 
+    # Without the tile order that the autograd op passes: the wrappers
+    # compute the same one when none is given.
     def rec_fwd(*args):
-        seen["fwd"] = detach(args)
+        seen["fwd"] = detach(args[:8])
         return fwd(*args)
 
     def rec_bwd(*args):
-        seen["bwd"] = detach(args)
+        seen["bwd"] = detach(args[:11])
         return bwd(*args)
 
     prast.composite_fwd, prast.composite_bwd = rec_fwd, rec_bwd
@@ -516,16 +525,17 @@ def work(fwd_args, out):
     """Pair-pixels of the processed chunks: in range (in-range pairs, every
     pixel of their tile), evaluated (those inside the pair's bounding box
     from ops/rasterize.pair_bounds, clipped to the tile: a pixel outside it
-    needs no per-pixel arithmetic), composited (alpha >= 1/255), unclamped
-    composited, and composited ones outside the pair bounds (must be 0);
-    plus the gaussian rows read."""
+    needs no per-pixel arithmetic), within the cut (inside the box with
+    sigma <= s_cut: these go on to exp), composited (alpha >= 1/255),
+    unclamped composited, and composited ones outside the pair bounds (must
+    be 0); plus the gaussian rows read."""
     import torch
     from gs_init_tpu_torch.ops import rasterize as prast
 
     table, gid, starts, num_tiles, ntx, nty, tile, chunk = fwd_args
     s, e, c0, _ = prast._chunk_windows(starts, chunk)
     nproc = out[:, prast.ROW_NPROC, 0].long()
-    w = dict(in_range=0, evaluated=0, composited=0, unclamped=0, outside=0)
+    w = dict(in_range=0, evaluated=0, within_cut=0, composited=0, unclamped=0, outside=0)
     used = torch.zeros(table.shape[0], dtype=torch.bool, device=table.device)
 
     def span(centre, half):  # pixel centres c + 0.5 of [0, tile) with |c - centre| <= half
@@ -554,6 +564,7 @@ def work(fwd_args, out):
         box = span(mx[..., 0] - ox[..., 0] - 0.5, hx) * span(my[..., 0] - oy[..., 0] - 0.5, hy)
         w["in_range"] += int(inr.sum()) * tile * tile
         w["evaluated"] += int(box[inr].sum())
+        w["within_cut"] += int((inside & inr[..., None]).sum())
         w["composited"] += int(ok.sum())
         w["unclamped"] += int(aux["unclamped"].sum())
         w["outside"] += int((ok & ~inside).sum())
@@ -592,7 +603,8 @@ def kernel_report(ctx, launches, scan_err):
         t.setdefault("scan_plain", []).append(cuda_ms(lambda: prast.scan_probe_plain(x, m), 100))
     t = {k: float(np.min(v)) for k, v in t.items()}
 
-    evals, comp, uncl, rows_used = wk["evaluated"], wk["composited"], wk["unclamped"], wk["rows_used"]
+    evals, cut, comp, uncl = wk["evaluated"], wk["within_cut"], wk["composited"], wk["unclamped"]
+    rows_used = wk["rows_used"]
     table, gid, starts, num_tiles = fargs[:4]
     pixels = fargs[6] ** 2
     pairs = int(starts[-1])
@@ -604,12 +616,14 @@ def kernel_report(ctx, launches, scan_err):
     out_bytes = num_tiles * 8 * pixels * 4
     fwd_bytes = in_bytes + out_bytes
     bwd_bytes = in_bytes + 2 * out_bytes + table.shape[0] * (16 + 2) * 4
-    fwd_ops = evals * OPS_EVAL + comp * OPS_FWD_COMPOSITED
-    bwd_ops = evals * OPS_EVAL + comp * OPS_BWD_COMPOSITED + uncl * OPS_BWD_UNCLAMPED
+    eval_ops = evals * OPS_SIGMA + cut * OPS_ALPHA
+    fwd_ops = eval_ops + comp * OPS_FWD_COMPOSITED
+    bwd_ops = eval_ops + comp * OPS_BWD_COMPOSITED + uncl * OPS_BWD_UNCLAMPED
     log(f"  shared memory per block at chunk {fargs[7]}: forward {prast.FWD_SMEM_PER_PAIR * fargs[7]} B, "
         f"backward {prast.BWD_SMEM_PER_PAIR * fargs[7]} B")
     log(f"  work: {wk['in_range']} pair-pixels in range, {evals} evaluated (inside the pair bounds' box), "
-        f"{comp} composited, {uncl} unclamped; {rows_used} gaussian rows read")
+        f"{cut} within the sigma cut, {comp} composited, {uncl} unclamped; {rows_used} gaussian rows read; "
+        f"operations forward {fwd_ops}, backward {bwd_ops}")
 
     def entry(name, err, ms, plain_ms, nbytes, ops):
         tb, to = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_FP32_FLOPS * 1e3
@@ -696,6 +710,11 @@ def main():
     log("phase 2: kernels against plain, and a train step against the CPU")
     check_kernels("mid-size scene", *compositor_case(dev, "mid"))
     check_kernels("deep stack", *compositor_case(dev, "deep"))
+    # Tiles other than 16 and 32 take the kernels' other pixel layout (a
+    # row of lanes per warp): a small tile and one that is not a power of 2.
+    check_kernels("mid-size scene, tile 8", *compositor_case(dev, "mid", tile=8))
+    check_kernels("mid-size scene, tile 24", *compositor_case(dev, "mid", tile=24))
+    check_kernels("deep stack, tile 8", *compositor_case(dev, "deep", tile=8))
     scan_err = check_scan_kernel(dev)
     step_card_vs_cpu(dev)
 

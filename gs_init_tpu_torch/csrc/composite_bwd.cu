@@ -22,24 +22,25 @@
 // the absolute value taken per (pair, tile) as the JAX records do.
 //
 // Bound on this card: FP32 arithmetic. At the 300k-gaussian flagship the
-// replay re-evaluates the 200M pair-pixels inside their pairs' boxes (16
-// operations) and runs 41 more for each of the 156M that composite, a
-// divide among them: 0.143 ms at 67 TFLOP/s. Measured on an H100 80GB HBM3
-// at 700 W (chip_smoke.py): 1.50-1.51 ms, against 3.42-3.46 ms for the
-// PR 1 design.
+// replay re-evaluates the 200M pair-pixels inside their pairs' boxes (11
+// operations), 5 more for the 156M within the sigma cut, and 42 more for
+// each of the 156M that composite, a divide among them: 0.142 ms at 67
+// TFLOP/s. Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py):
+// 1.41-1.42 ms, against 3.42-3.46 ms for the first port's design (shared
+// atomics after a 50-shuffle reduction per pair, no bounds).
 // Design: the forward's block layout, staging, pair bounds and tile order
-// (the order by chunks processed), plus:
+// (the same `order` array: it measured 3% faster here than an order by
+// chunks processed), plus:
 // - A warp whose bit is clear skips the pair, its reduction included.
 // - A warp that evaluated pair k sums its lanes' ten gradient terms by
 //   recursive halving (12 shuffles) and stores them into its own slot
 //   part[warp][k] with plain stores, zeros if no lane composited. After
 //   the chunk, one thread per pair adds the slots of the warps in its mask
-//   in a fixed order (deterministic within the block), then adds the block
-//   total to dtable and absgrad with three float4/float2 atomics and one
-//   float2 atomic, each skipped when all zero.
-// - __launch_bounds__(256, 3) holds 80 registers for 3 blocks per SM
-//   (53.5 KB of shared memory each at chunk 128); the few spilled words sit
-//   outside the per-pair loop.
+//   in a fixed order (deterministic within the block), then adds each
+//   non-zero value of the block total to dtable and absgrad with a scalar
+//   atomic (float4/float2 atomics measured no faster).
+// - __launch_bounds__(256, 3) holds 80 registers, without spills, for 3
+//   blocks per SM (53.5 KB of shared memory each at chunk 128).
 #include "composite_common.cuh"
 
 namespace {
@@ -82,10 +83,6 @@ __device__ __forceinline__ int reduced_index(int lane) {
 
 __device__ __forceinline__ bool reduced_valid(int lane) {
   return !((lane & 4) && (lane & 10));
-}
-
-__device__ __forceinline__ bool any4(float4 v) {
-  return v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f;
 }
 
 __global__ void __launch_bounds__(THREADS, 3)
@@ -254,18 +251,16 @@ composite_bwd_kernel(const float* __restrict__ table,
       const float dmx = -(2.f * ca * sx + cbb * sy);
       const float dmy = -(2.f * cc * sy + cbb * sx);
       const int gid = cur_gid[k];
-      // Rows are 64 bytes, so columns 0-3, 4-7 and 8-9 are 16- and 8-byte
-      // aligned vectors (the wrapper checks the base alignment).
-      float4* row = reinterpret_cast<float4*>(dtable + (size_t)gid * PACK_COLS);
-      const float4 v0 = make_float4(dmx, dmy, sum[2], sum[3]);
-      const float4 v1 = make_float4(sum[4], sum[5], sum[6], sum[7]);
-      if (any4(v0)) atomicAdd(row, v0);
-      if (any4(v1)) atomicAdd(row + 1, v1);
-      if (sum[8] != 0.f || sum[9] != 0.f)
-        atomicAdd(reinterpret_cast<float2*>(row + 2), make_float2(sum[8], sum[9]));
-      if (want_absgrad && (dmx != 0.f || dmy != 0.f))
-        atomicAdd(reinterpret_cast<float2*>(absgrad + (size_t)gid * 2),
-                  make_float2(fabsf(dmx), fabsf(dmy)));
+      float* row = dtable + (size_t)gid * PACK_COLS;
+      sum[0] = dmx;
+      sum[1] = dmy;
+#pragma unroll
+      for (int c = 0; c < NACC; ++c)
+        if (sum[c] != 0.f) atomicAdd(&row[c], sum[c]);
+      if (want_absgrad) {
+        if (dmx != 0.f) atomicAdd(&absgrad[(size_t)gid * 2 + 0], fabsf(dmx));
+        if (dmy != 0.f) atomicAdd(&absgrad[(size_t)gid * 2 + 1], fabsf(dmy));
+      }
     }
   }
 }

@@ -18,10 +18,12 @@
 //
 // Bound on this card: FP32 arithmetic. At the 300k-gaussian flagship
 // (1296x840, tile 32, 1.35M pairs) the processed chunks hold 612M in-range
-// pair-pixels, of which 200M lie inside their pair's bounding box (16
-// operations each, exp included) and 156M composite (12 more): 0.076 ms
-// at 67 TFLOP/s. Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py):
-// 0.68-0.70 ms, against 1.37-1.40 ms for the PR 1 design.
+// pair-pixels, of which 200M lie inside their pair's bounding box (11
+// operations each: sigma and the cut), 156M within the sigma cut (5 more,
+// exp among them) and 156M composite (13 more): 0.075 ms at 67 TFLOP/s.
+// Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py): 0.67-0.71 ms,
+// against 1.37-1.40 ms for the first port's design (every warp evaluating
+// every pair on a 32x4 strip, no bounds).
 // Design: one block of 256 threads per tile, 4 pixels per thread kept in
 // registers, each warp on a 16x8 pixel rectangle.
 // - Each chunk's rows are staged with cp.async, double-buffered, and read
@@ -30,8 +32,9 @@
 //   (composite_common.cuh::pair_bounds): a warp whose rectangle misses the
 //   pair's box skips it with a warp-uniform branch, and a pixel whose
 //   sigma exceeds the pair's cut skips expf. Both skip only pixels that
-//   would not composite, so every evaluated pixel runs PR 1's operations
-//   in PR 1's order and the outputs are unchanged.
+//   would not composite, so every pixel that composites runs the same
+//   operations in the same order as without the bounds, and the outputs
+//   are unchanged.
 // - Blocks take tiles longest first (`order`, from the wrapper), so a long
 //   tile does not start in the last of the 2.8 waves.
 // - __launch_bounds__(256, 3) holds 80 registers for 3 blocks per SM; the

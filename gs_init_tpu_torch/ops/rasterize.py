@@ -46,12 +46,13 @@ OUT_ROWS = 8
 ROW_R, ROW_G, ROW_B, ROW_ACC, ROW_DEPTH, ROW_T, ROW_NPROC = 0, 1, 2, 3, 4, 5, 6
 NATTR = 10  # table columns the compositor reads: mx my ca cb cc opa r g b d
 MAX_TILE_PIXELS = 1024  # 256 threads x 4 pixels in the CUDA kernels
-# Shared memory of a block per pair of a chunk: two staged 48-byte rows
-# (double buffering) and three pair ids; the backward adds eight warps' ten
-# partial sums.
+# Shared memory of a block per pair of a chunk, as the C entry points size
+# it: two staged 48-byte rows (double buffering) and three pair ids; the
+# backward adds eight warps' ten partial sums. A block may take at most
+# 232,448 B on sm_90, which bounds the chunk (543 pairs).
 FWD_SMEM_PER_PAIR = 2 * 48 + 3 * 4
 BWD_SMEM_PER_PAIR = FWD_SMEM_PER_PAIR + 8 * 10 * 4
-MAX_CHUNK = 512  # 512 x 428 B = 219,136 B, within the 232,448 B a block may use
+MAX_CHUNK = 232_448 // BWD_SMEM_PER_PAIR
 
 
 # ----------------------------------------------------------------- helpers
@@ -321,8 +322,20 @@ def _stream(t: torch.Tensor):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def composite_fwd(table, gid_sorted, tile_starts, num_tiles, ntx, nty, tile, chunk):
-    """Forward compositor: the CUDA kernel for CUDA tensors, else plain."""
+def _launch_order(tile_starts, chunk, order):
+    """The blocks' tile order: ``order`` if given (int32, one entry per
+    tile), else the tiles by descending chunk count."""
+    if order is None:
+        return tile_order(_chunk_windows(tile_starts, chunk)[3])
+    if order.dtype != torch.int32 or order.shape != (tile_starts.shape[0] - 1,) or order.device != tile_starts.device:
+        raise ValueError("order must be int32 with one entry per tile, on the tiles' device")
+    return order.contiguous()
+
+
+def composite_fwd(table, gid_sorted, tile_starts, num_tiles, ntx, nty, tile, chunk, order=None):
+    """Forward compositor: the CUDA kernel for CUDA tensors, else plain.
+    ``order`` (``tile_order``; computed when not given) only sets which
+    block takes which tile."""
     if not table.is_cuda:
         return composite_fwd_plain(
             table, gid_sorted, tile_starts, num_tiles, ntx, nty, tile, chunk
@@ -330,7 +343,7 @@ def composite_fwd(table, gid_sorted, tile_starts, num_tiles, ntx, nty, tile, chu
     _check(table, gid_sorted, tile_starts, num_tiles, tile, chunk)
     fn = kernels.function("composite_fwd")
     out = torch.empty((num_tiles, OUT_ROWS, tile * tile), dtype=torch.float32, device=table.device)
-    order = tile_order(_chunk_windows(tile_starts, chunk)[3])
+    order = _launch_order(tile_starts, chunk, order)
     code = fn(
         table.data_ptr(), gid_sorted.data_ptr(), tile_starts.data_ptr(), order.data_ptr(), out.data_ptr(),
         num_tiles, ntx, nty, tile, chunk, _stream(table),
@@ -342,10 +355,11 @@ def composite_fwd(table, gid_sorted, tile_starts, num_tiles, ntx, nty, tile, chu
 
 def composite_bwd(
     table, gid_sorted, tile_starts, fwd_out, g_out, num_tiles, ntx, nty, tile, chunk,
-    want_absgrad=True,
+    want_absgrad=True, order=None,
 ):
     """Backward compositor: the CUDA kernel for CUDA tensors, else plain.
-    Returns (dtable [C*N, 16], absgrad [C*N, 2])."""
+    Returns (dtable [C*N, 16], absgrad [C*N, 2]). ``order`` as in
+    ``composite_fwd``; the autograd op passes the forward's."""
     if not table.is_cuda:
         return composite_bwd_plain(
             table, gid_sorted, tile_starts, fwd_out, g_out, num_tiles, ntx, nty,
@@ -359,10 +373,7 @@ def composite_bwd(
     fn = kernels.function("composite_bwd")
     dtable = torch.zeros_like(table)
     absgrad = torch.zeros((table.shape[0], 2), dtype=torch.float32, device=table.device)
-    if dtable.data_ptr() % 16 or absgrad.data_ptr() % 16:
-        raise ValueError("dtable and absgrad must be 16-byte aligned (vector atomics)")
-    # Chunks the backward replays per tile: row 6 of the forward's output.
-    order = tile_order(fwd_out[:, ROW_NPROC, 0])
+    order = _launch_order(tile_starts, chunk, order)
     code = fn(
         table.data_ptr(), gid_sorted.data_ptr(), tile_starts.data_ptr(), order.data_ptr(),
         fwd_out.data_ptr(), g_out.data_ptr(), dtable.data_ptr(), absgrad.data_ptr(),
@@ -424,8 +435,11 @@ class _RenderTiles(torch.autograd.Function):
         tile, chunk, want_depth_grad, want_absgrad,
     ):
         del pair_dummy  # zeros by contract: its gradient is the absgrad tap
-        out = composite_fwd(table, gid_sorted, tile_starts, num_tiles, ntx, nty, tile, chunk)
+        # One tile order for both kernels (the plain versions need none).
+        order = _launch_order(tile_starts, chunk, None) if table.is_cuda else None
+        out = composite_fwd(table, gid_sorted, tile_starts, num_tiles, ntx, nty, tile, chunk, order)
         ctx.save_for_backward(table, gid_sorted, tile_starts, out)
+        ctx.order = order
         ctx.meta = (num_tiles, ntx, nty, tile, chunk, want_depth_grad, want_absgrad)
         return out
 
@@ -435,7 +449,7 @@ class _RenderTiles(torch.autograd.Function):
         num_tiles, ntx, nty, tile, chunk, want_depth_grad, want_absgrad = ctx.meta
         dtable, absgrad = composite_bwd(
             table, gid_sorted, tile_starts, out, g_out.contiguous(),
-            num_tiles, ntx, nty, tile, chunk, want_absgrad,
+            num_tiles, ntx, nty, tile, chunk, want_absgrad, ctx.order,
         )
         if not want_depth_grad:
             dtable[:, PACK_DEPTH] = 0.0

@@ -270,3 +270,16 @@ def test_tile_order_longest_first():
     order = prast.tile_order(counts)
     assert order.dtype == torch.int32
     assert order.tolist() == [1, 3, 0, 5, 4, 2]
+
+
+def test_launch_order_default_and_given():
+    """Both compositor wrappers launch in the order they are given (the
+    autograd op passes one order to both), else by descending chunk count;
+    an order of the wrong type or length raises."""
+    starts = torch.tensor([0, 100, 100, 700, 1000], dtype=torch.int32)  # chunk 128
+    assert prast._launch_order(starts, 128, None).tolist() == [2, 3, 0, 1]
+    given = torch.tensor([3, 2, 1, 0], dtype=torch.int32)
+    assert prast._launch_order(starts, 128, given).tolist() == [3, 2, 1, 0]
+    for bad in (given.long(), given[:3]):
+        with pytest.raises(ValueError):
+            prast._launch_order(starts, 128, bad)
