@@ -18,7 +18,10 @@ no result line.
    (ops/rasterize.pair_bounds), which must be 0; the scan probe on its
    [128, 128] inputs. Then one train step of a small scene on the card
    against the same step on the CPU, where the wrappers run the plain
-   versions.
+   versions; the dense oracle (render impl="xla") against the tile
+   compositor on the card (2,000 gaussians, 160x120, tile 16), values and
+   gradients; and one points_from_depth (RANSAC, 2,500 hypotheses,
+   noise-free stub depth, 1296x840) on the card against the CPU.
 3. The main path: the train step at bench.py's flagship scenario (300k
    gaussians, capacity 393216, 1296x840, tile 32, chunk 128, SH degree 3,
    L1 + SSIM, Adam, densification statistics), a step function built
@@ -30,10 +33,24 @@ no result line.
 4. Each kernel against its plain version on the flagship step's own inputs
    (captured from one more step), the pair-bounds count again, the chunks
    per tile, the time of both, and each kernel's bound from this run's
-   data.
+   data. The scan probe's device-only time from the profiler, beside an
+   empty kernel launched the same way (the launch floor).
 5. The Runner end to end: a synthetic COLMAP scene at 648x420 with 12
    cameras, 300 steps with refines at steps 100 and 200; eval PSNR must
    rise from the initial gaussians to the trained ones.
+6. Monocular-depth init. (a) At full width: scripts/e2e_quality.py's
+   clustered scene at 1296x840 with 24 cameras and 250 SfM points (the
+   foreground only), the stub predictor over the scene's surface depth
+   (scale 0.37, shift 1.3), three configurations: the defaults (RANSAC,
+   2,500 hypotheses, static stride 10, SfM density mask, SfM points
+   included); an interpolated RBF scale map; the defaults plus LOF removal
+   and the native KD-split merge. Seconds per image and for the whole
+   init, points out, the recovered scale against 1/0.37 (median and worst
+   over images), peak memory. (b) The three arms of E2E_QUALITY.json:
+   the clustered scene at 648x420 with 12 cameras, 800 steps with
+   e2e_quality.py's run() settings, for sfm, monocular_depth and sfm+mdi
+   init; both mdi arms' eval PSNR must beat the sfm arm's, and the
+   compositor kernels must launch once per train step.
 
 The line before the last lists the kernels as JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -100,6 +117,15 @@ SCAN_RTOL = 1e-5
 # on two math libraries, so the first Adam moment (0.1 x gradient) is held
 # to 1e-3 of each leaf's max.
 STEP_RTOL = 1e-3
+# The dense oracle against the tile compositor on a scene where no tile
+# stops early (T stays above 1e-4): forward within 1e-4 abs, gradients
+# within 1e-3 of each leaf's max (two compositing orders, autograd through
+# the oracle's log-space cumulative sums against the kernels' VJP).
+ORACLE_ATOL = 1e-4
+ORACLE_GRAD_RTOL = 1e-3
+# points_from_depth on the card against the CPU with the same hypotheses:
+# (s, t) within 1e-4 relative, masks equal.
+PFD_RTOL = 1e-4
 
 
 def log(*args):
@@ -333,6 +359,115 @@ def step_card_vs_cpu(dev):
     if (abs(pg - pc) > 1e-3 * pc or abs(lg - lc) > 1e-4 * abs(lc) or worst > STEP_RTOL
             or g_err > STEP_RTOL or seen_diff > 2 or r_diff > 1.001):
         raise RuntimeError("the train step on the card disagrees with the same step on the CPU")
+
+
+def oracle_vs_compositor(dev, n=2000, width=160, height=120, tile=16):
+    """render(impl="xla") against impl="pallas" on the card: a sparse scene
+    (opacity 0.05-0.5) where no tile stops early, values and gradients."""
+    import torch
+    from gs_init_tpu_torch import kernels
+    from gs_init_tpu_torch.ops.render import rasterize
+
+    rng = np.random.default_rng(5)
+    means = np.stack([rng.uniform(-2, 2, n), rng.uniform(-1.5, 1.5, n), rng.uniform(3, 9, n)], -1)
+    f = 0.9 * width
+    K = np.array([[f, 0, width / 2], [0, f, height / 2], [0, 0, 1]])
+    T = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    inputs = (
+        means, rng.normal(size=(n, 4)), np.exp(rng.uniform(np.log(0.01), np.log(0.05), (n, 3))),
+        rng.uniform(0.05, 0.5, n), rng.uniform(0, 1, (n, 3)),
+    )
+    target = T(rng.uniform(0, 1, (1, height, width, 3)))
+    out = {}
+    launches0 = dict(kernels.LAUNCHES)
+    for impl in ("xla", "pallas"):
+        leaves = [T(x).requires_grad_(True) for x in inputs]
+        render, alpha, info = rasterize(
+            *leaves, torch.eye(4, device=dev)[None], T(K)[None], width, height, tile_size=tile,
+            pair_capacity=1 << 18, render_mode="RGB+ED", impl=impl,
+        )
+        loss = ((render[..., :3] - target) ** 2).mean() + alpha.mean()
+        grads = torch.autograd.grad(loss, leaves)
+        out[impl] = (render.detach(), alpha.detach(), grads, int(info.overflow))
+    torch.cuda.synchronize()
+    (r0, a0, g0, _), (r1, a1, g1, ov) = out["xla"], out["pallas"]
+    if ov:
+        raise RuntimeError(f"oracle check: the pair table overflowed by {ov}")
+    launched = {k: kernels.LAUNCHES[k] - launches0[k] for k in ("composite_fwd", "composite_bwd")}
+    if launched != {"composite_fwd": 1, "composite_bwd": 1}:
+        raise RuntimeError(f"oracle check: the compositor launched {launched}, not once each")
+    fwd_err = max(float((r0[..., :3] - r1[..., :3]).abs().max()), float((a0 - a1).abs().max()))
+    names = ("means", "quats", "scales", "opacities", "colors")
+    rel = {k: float((x - y).abs().max() / y.abs().max().clamp(min=1e-30)) for k, x, y in zip(names, g0, g1)}
+    log(f"  dense oracle vs tile compositor ({n} gaussians, {width}x{height}, tile {tile}; max alpha "
+        f"{float(a1.max()):.3f}): colour and alpha max abs err {fwd_err:.3e} (tol {ORACLE_ATOL:g}); "
+        f"gradient err / leaf max {json.dumps({k: float(f'{v:.3e}') for k, v in rel.items()})} "
+        f"(tol {ORACLE_GRAD_RTOL:g})")
+    if not (torch.isfinite(r0).all() and all(bool(torch.isfinite(g).all()) for g in g0)):
+        raise RuntimeError("oracle check: non-finite oracle output")
+    if fwd_err > ORACLE_ATOL or max(rel.values()) > ORACLE_GRAD_RTOL:
+        raise RuntimeError("the dense oracle disagrees with the tile compositor on the card")
+
+
+def plane_view(width=1296, height=840, m=300, seed=0):
+    """A slanted plane with a step, seen by one camera; SfM points on it
+    (some out of frame, the rest of the padding invalid) and the stub's
+    noise-free prediction 0.37 depth + 1.3."""
+    rng = np.random.default_rng(seed)
+    f = 0.85 * width
+    K = np.array([[f, 0, width / 2], [0, f, height / 2], [0, 0, 1]], np.float32)
+    c2w = np.eye(4, dtype=np.float32)
+    c2w[:3, 3] = [0.1, -0.2, 0.3]
+    ys, xs = np.mgrid[0:height, 0:width] + 0.5
+    true = 2.0 + 2.0 * xs / width + 3.0 * ys / height
+    true[:, width * 2 // 3:] += 2.0
+    true = true.astype(np.float32)
+    px, py = rng.uniform(-20, width + 20, m), rng.uniform(0, height, m)
+    z = true[np.clip(py.astype(int), 0, height - 1), np.clip(px.astype(int), 0, width - 1)]
+    cam = np.stack([(px - K[0, 2]) / f * z, (py - K[1, 2]) / f * z, z], -1)
+    sfm = np.zeros((m + 20, 3), np.float32)
+    sfm[:m] = cam + c2w[:3, 3]
+    valid = np.arange(m + 20) < m
+    pred = (0.37 * true + 1.3).astype(np.float32)
+    return pred, np.ones(pred.shape, bool), c2w, K, sfm, valid
+
+
+def points_from_depth_card_vs_cpu(dev):
+    """One points_from_depth (RANSAC, 2,500 hypotheses) on the card and on
+    the CPU with the same hypotheses: (s, t) and the masks."""
+    import torch
+    from gs_init_tpu_torch.device import generator
+    from gs_init_tpu_torch.mdi.alignment.ransac import sample_hypotheses
+    from gs_init_tpu_torch.mdi.points_from_depth import points_from_depth
+
+    pred, pmask, c2w, K, sfm, valid = plane_view()
+    h, w = pred.shape
+    kw = dict(width=w, height=h, align_method="ransac", ransac_iters=2500, use_grad_mask=True,
+              use_sfm_density_mask=True)
+    idx = sample_hypotheses(torch.as_tensor(valid), 2500, 4, generator(0))
+    res = []
+    for d in (torch.device("cpu"), dev):
+        T = lambda x: torch.as_tensor(x, device=d)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = points_from_depth(T(pred), T(pmask), T(c2w), T(K), T(sfm), T(valid), idx.to(d), **kw)
+        res.append((float(out.scale), float(out.shift), out.mask.cpu(), time.perf_counter() - t0))
+    drawn = points_from_depth(
+        *(torch.as_tensor(x, device=dev) for x in (pred, pmask, c2w, K, sfm, valid)),
+        generator=generator(0, dev), **kw,
+    )
+    (sc, tc, mc, secs_c), (sg, tg, mg, secs_g) = res
+    s_rel = abs(sg - sc) / abs(sc)
+    t_rel = abs(tg - tc) / abs(tc)
+    log(f"  points_from_depth {w}x{h}, RANSAC 2500 hypotheses: card (s, t) = ({sg:.7f}, {tg:.7f}), "
+        f"CPU ({sc:.7f}, {tc:.7f}), rel err {s_rel:.3e}, {t_rel:.3e} (tol {PFD_RTOL:g}); masks equal "
+        f"{bool(torch.equal(mc, mg))} ({int(mg.sum())} points); the card's own draws s = "
+        f"{float(drawn.scale):.7f} (1/0.37 = {1 / 0.37:.7f}); {secs_g * 1e3:.3f} ms on the card "
+        f"(first call), {secs_c * 1e3:.3f} ms on the CPU")
+    if s_rel > PFD_RTOL or t_rel > PFD_RTOL or not torch.equal(mc, mg):
+        raise RuntimeError("points_from_depth on the card disagrees with the CPU")
+    if abs(float(drawn.scale) * 0.37 - 1.0) > 1e-3:
+        raise RuntimeError("points_from_depth with the card's own draws missed the stub's scale")
 
 
 # ------------------------------------------------------------------ phase 3
@@ -573,6 +708,70 @@ def work(fwd_args, out):
     return w
 
 
+# An empty kernel with the scan probe's signature, grid and block, launched
+# through ctypes the same way: its time is the floor under any launch.
+EMPTY_SRC = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel(const float*, const float*, float*, float*, int, int) {}
+extern "C" int empty_launch(const void* x, const void* m, void* s, void* q, int n, int p,
+                            void* stream) {
+  empty_kernel<<<p, (n + 31) / 32 * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(m), static_cast<float*>(s),
+      static_cast<float*>(q), n, p);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def launch_floor(dev, launches=100):
+    """The scan probe's device-only time (profiler) and CUDA-event time per
+    launch, beside the same two for an empty kernel launched the same way."""
+    import ctypes
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from gs_init_tpu_torch import kernels
+    from gs_init_tpu_torch.ops import rasterize as prast
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src, lib_path = os.path.join(tmp, "empty.cu"), os.path.join(tmp, "libempty.so")
+        with open(src, "w") as f:
+            f.write(EMPTY_SRC)
+        subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", lib_path, src],
+                       check=True, capture_output=True, timeout=300)
+        lib = ctypes.CDLL(lib_path)
+    fn = lib.empty_launch
+    fn.argtypes = kernels.KERNELS["scan_probe"][1]
+    fn.restype = ctypes.c_int
+    x, m = prast.scan_probe_inputs(dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def empty():
+        s, q = torch.empty_like(x), torch.empty_like(m)
+        if fn(x.data_ptr(), m.data_ptr(), s.data_ptr(), q.data_ptr(), x.shape[0], x.shape[1], stream):
+            raise RuntimeError("the empty kernel failed to launch")
+
+    probe = lambda: prast.scan_probe(x, m)
+    res = {}
+    for name, call, key in (("scan_probe", probe, "scan_probe_kernel"), ("empty", empty, "empty_kernel")):
+        event_ms = cuda_ms(call, launches, warmup=3)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(launches):
+                call()
+            torch.cuda.synchronize()
+        dev_us = [
+            getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA and key in e.key
+        ]
+        res[name] = (event_ms, sum(dev_us) / launches / 1e3 if dev_us else float("nan"))
+    log(f"  launch floor ({launches} launches each, ctypes, {x.shape[1]} blocks of {x.shape[0]} "
+        f"threads): scan probe {res['scan_probe'][0]:.5f} ms by CUDA events, "
+        f"{res['scan_probe'][1]:.5f} ms on the device (profiler); empty kernel "
+        f"{res['empty'][0]:.5f} ms by CUDA events, {res['empty'][1]:.5f} ms on the device")
+    return res
+
+
 def kernel_report(ctx, launches, scan_err):
     from gs_init_tpu_torch.ops import rasterize as prast
 
@@ -687,6 +886,150 @@ def runner_e2e(steps=300, width=648, height=420):
             raise RuntimeError("the Runner's refines did not grow the gaussians")
 
 
+# ------------------------------------------------------------------ phase 6
+
+
+def surface_depth_stub(scene, parser):
+    """scripts/e2e_quality.py's oracle predictor: the scene's surface depth
+    per training image (NaN where alpha <= 0.3), in trainset order, under
+    the stub's affine distortion (0.37 depth + 1.3)."""
+    from gs_init_tpu_torch.mdi.predictors.stub import StubPredictor
+
+    depths = [
+        np.where(scene.alphas[i] > 0.3, scene.surface_depths[i], np.nan).astype(np.float32)
+        for i in parser.split_indices("train")
+    ]
+    calls = iter(range(1 << 30))
+    return StubPredictor(oracle=lambda image, intr: depths[next(calls) % len(depths)], scale=0.37, shift=1.3)
+
+
+def clustered_colmap(tmp, width, height, n_cams, dev):
+    from gs_init_tpu_torch.datasets.synthetic import make_clustered_scene, write_colmap_scene
+
+    t0 = time.perf_counter()
+    scene = make_clustered_scene(seed=3, n_cams=n_cams, width=width, height=height, device=dev)
+    data_dir = write_colmap_scene(tmp, scene, n_points=250)  # the foreground cluster only
+    log(f"  clustered scene {width}x{height}, {n_cams} cameras, {len(scene.points)} gaussians, "
+        f"250 SfM points: built in {time.perf_counter() - t0:.3f} s")
+    return scene, data_dir
+
+
+def mdi_init_full_width(dev, width=1296, height=840, n_cams=24):
+    """Phase 6a: the monocular-depth init in three configurations."""
+    import torch
+    from gs_init_tpu_torch.config import Config
+    from gs_init_tpu_torch.datasets.parser import Parser
+    from gs_init_tpu_torch.mdi.init import pts_and_rgb_from_monocular_depth
+
+    def defaults(c):
+        pass
+
+    def interpolate_rbf(c):
+        c.mdi.alignment.method = "interpolate"
+        c.mdi.alignment.interp.method = "rbf"
+
+    def lof_native(c):
+        c.mdi.postprocess.lof_outlier_removal = True
+        c.mdi.postprocess.merge_subsample = True
+        c.mdi.postprocess.merge_impl = "native"
+
+    with tempfile.TemporaryDirectory() as tmp:
+        scene, data_dir = clustered_colmap(tmp, width, height, n_cams, dev)
+        parser = Parser(data_dir, factor=1, test_every=8)
+        # Depths in the parser's world are the scene's times its similarity scale.
+        k = float(np.cbrt(np.linalg.det(parser.transform[:3, :3])))
+        want = k / 0.37
+        for setup in (defaults, interpolate_rbf, lof_native):
+            cfg = Config(data_dir=data_dir, data_factor=1, test_every=8, init_type="monocular_depth",
+                         result_dir=os.path.join(tmp, "res"))
+            cfg.mdi.predictor = "stub"
+            cfg.mdi.use_cache = False
+            setup(cfg)
+            per_image = []
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            pts, rgbs = pts_and_rgb_from_monocular_depth(
+                cfg, parser, model=surface_depth_stub(scene, parser), device=dev, per_image=per_image
+            )
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            ratio = np.array([r["scale"] for r in per_image]) / want
+            per = np.array([r["seconds"] for r in per_image])
+            worst = float(ratio[np.argmax(np.abs(ratio - 1))])
+            log(f"  mdi init [{setup.__name__}]: {len(per_image)} images, {secs:.3f} s in all, "
+                f"{per.mean():.4f} s per image (median {np.median(per):.4f}, max {per.max():.4f}); "
+                f"{len(pts)} points out; scale / (similarity scale / 0.37): median "
+                f"{float(np.median(ratio)):.5f}, worst {worst:.5f}; peak memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+            if not (len(pts) > 1000 and np.isfinite(pts).all() and np.isfinite(rgbs).all()):
+                raise RuntimeError(f"mdi init [{setup.__name__}]: no usable cloud")
+            if abs(float(np.median(ratio)) - 1) > 0.01:
+                raise RuntimeError(f"mdi init [{setup.__name__}]: the stub's scale was not recovered")
+
+
+def three_arms(dev, steps=800, width=648, height=420, n_cams=12):
+    """Phase 6b: E2E_QUALITY.json's scenario through the port's Runner."""
+    import torch
+    from gs_init_tpu_torch import kernels
+    from gs_init_tpu_torch.config import Config
+    from gs_init_tpu_torch.datasets.parser import Parser
+    from gs_init_tpu_torch.engine.runner import Runner
+
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        scene, data_dir = clustered_colmap(tmp, width, height, n_cams, dev)
+        for arm in ("sfm", "monocular_depth", "sfm+mdi"):
+            init_type = "sfm" if arm == "sfm" else "monocular_depth"
+            # scripts/e2e_quality.py run()'s settings.
+            cfg = Config(
+                data_dir=data_dir, data_factor=1, result_dir=os.path.join(tmp, arm.replace("+", "_")),
+                max_steps=steps, test_every=8, sh_degree=2, max_gaussians=131072,
+                init_type=init_type, batch_size=1, eval_steps=[], save_steps=[steps], tb_every=200,
+            )
+            cfg.mdi.include_sfm_points = arm == "sfm+mdi"
+            cfg.auto_pair_capacity = False
+            cfg.pair_capacity = 1 << 21
+            cfg.strategy.refine_start_iter = 300
+            cfg.strategy.refine_stop_iter = int(steps * 0.6)
+            cfg.strategy.reset_every = max(steps // 2, 600)
+            cfg.strategy.refine_every = 150
+            cfg.mdi.predictor = "stub"
+            cfg.mdi.use_cache = False
+            cfg.mdi.subsampling.factor = 6
+            cfg.mdi.depth_gradient_mask = True
+            t0 = time.perf_counter()
+            parser = Parser(data_dir, factor=1, test_every=cfg.test_every)
+            model = surface_depth_stub(scene, parser) if init_type == "monocular_depth" else None
+            runner = Runner(cfg, parser=parser, mdi_model=model, device=dev)
+            n0 = int(runner.gstate.alive.sum())
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            kernels.reset_launch_counts()
+            runner.train()  # evaluates once, at the last step
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            launches = dict(kernels.LAUNCHES)
+            stats = runner.eval(steps)
+            n_val = len(runner.valset)
+            want = dict(composite_fwd=steps + n_val, composite_bwd=steps)
+            log(f"  arm {arm}: init {t1 - t0:.3f} s ({n0} gaussians), {steps} steps in {t2 - t1:.3f} s "
+                f"({steps / (t2 - t1):.3f} steps/s), {stats['num_GS']} gaussians at the end; eval PSNR "
+                f"{stats['psnr']:.4f}, SSIM {stats['ssim']:.4f}; launches in train() "
+                f"{json.dumps({k: launches[k] for k in want})} (want {json.dumps(want)}: one per step, "
+                f"and the forward once per view of train()'s final eval)")
+            if any(launches[k] != v for k, v in want.items()):
+                raise RuntimeError(f"arm {arm}: the compositor did not launch once per train step")
+            if not np.isfinite(stats["psnr"]):
+                raise RuntimeError(f"arm {arm}: non-finite eval PSNR")
+            res[arm] = stats
+    psnr = {k: round(v["psnr"], 4) for k, v in res.items()}
+    log(f"  three arms, eval PSNR: {json.dumps(psnr)}")
+    if not (res["monocular_depth"]["psnr"] > res["sfm"]["psnr"] and res["sfm+mdi"]["psnr"] > res["sfm"]["psnr"]):
+        raise RuntimeError("the mdi arms did not beat the sfm arm in eval PSNR")
+    return res
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -717,6 +1060,8 @@ def main():
     check_kernels("deep stack, tile 8", *compositor_case(dev, "deep", tile=8))
     scan_err = check_scan_kernel(dev)
     step_card_vs_cpu(dev)
+    oracle_vs_compositor(dev)
+    points_from_depth_card_vs_cpu(dev)
 
     log("phase 3: the main path, train steps at the flagship scenario")
     ctx = flagship_setup(dev)
@@ -725,11 +1070,17 @@ def main():
 
     log("phase 4: kernels on the flagship step's inputs")
     rows = kernel_report(ctx, launches, scan_err)
+    launch_floor(dev)
     del ctx
     torch.cuda.empty_cache()
 
     log("phase 5: the Runner end to end")
     runner_e2e()
+
+    log("phase 6a: monocular-depth init at full width")
+    mdi_init_full_width(dev)
+    log("phase 6b: the three arms, sfm, monocular_depth and sfm+mdi")
+    three_arms(dev)
 
     log(f"total {time.perf_counter() - t_start:.3f} s")
     log(card)

@@ -1,9 +1,11 @@
 """Configuration — the port's own copy of ``gs_init_tpu/config/config.py``.
 
-``Config`` and ``DefaultStrategyConfig`` keep the JAX package's field
-names and defaults so a configuration carries over. This slice runs the
-default training path; ``check_slice`` raises on settings that select code
-not yet ported, naming the slice that brings it.
+``Config``, ``DefaultStrategyConfig`` and the monocular-depth-init
+dataclasses (``MonocularDepthInitConfig`` and the ones it nests) keep the
+JAX package's field names and defaults so a configuration carries over.
+The port runs the default training path from SfM, random or
+monocular-depth init with the stub predictor; ``check_slice`` raises on
+settings that select code not yet ported, naming the slice that brings it.
 
 TPU-only knobs are accepted and have no effect here: the port always uses
 the f32 16-column pair table and f32 gradient sums (``wire8``,
@@ -40,6 +42,123 @@ class DefaultStrategyConfig:
 
 
 @dataclass(eq=False)
+class RansacConfig:
+    inlier_threshold: float = 0.01
+    max_iterations: int = 2500
+    confidence: float = 0.999
+    sample_size: int = 4
+    # Accepted for configuration parity: every max_iterations hypothesis is
+    # evaluated in one batch, so neither adaptive termination nor its floor
+    # nor a batch size applies.
+    min_iterations: int = 0
+    hypothesis_batch: int = 256
+
+
+@dataclass(eq=False)
+class InterpolatedAlignmentConfig:
+    prealign: Literal["ransac", "msac", "lstsqrs"] = "ransac"
+    method: Literal["rbf", "delaunay"] = "delaunay"
+    rbf_grid_width: int = 256
+    scale_outlier_removal: bool = True
+    smoothing: float = 0.001
+    kernel: str = "thin_plate_spline"  # the only kernel ops/rbf.py has
+    max_rbf_points: int = 5000  # cap on the dense O(M^3) TPS solve (-1 = all)
+    lof_neighbors: int = 20
+    lof_threshold: float = 1.5
+    knn_median_neighbors: int = 8
+    knn_median_threshold: float = 2.0
+
+
+@dataclass(eq=False)
+class SegmentationConfig:
+    method: Optional[Literal["slic", "sam"]] = None
+    slic_n_segments: int = 40
+    slic_compactness: float = 0.01
+    merge_gradient_threshold: float = 5e-4
+    merge_min_sfm_points: int = 5
+    region_margin: float = 10.0  # scaled by max(H, W) / 1297 at use
+    propagate_mask: bool = False
+    # SAM settings: accepted, but method="sam" raises (check_slice).
+    sam_variant: Literal["vit_b", "vit_l", "vit_h"] = "vit_h"
+    sam_img_size: int = 1024
+    sam_allow_random_weights: bool = False
+    sam_use_normals: bool = True
+    sam_degenerate_mask_thresh: float = 0.9
+    sam_expansion_radius: int = 4
+    sam_tiny_region_area_fraction: float = 1e-4
+
+
+@dataclass(eq=False)
+class DepthAlignmentConfig:
+    method: Literal["lstsqrs", "ransac", "msac", "interpolate"] = "ransac"
+    ransac: RansacConfig = field(default_factory=RansacConfig)
+    interp: InterpolatedAlignmentConfig = field(default_factory=InterpolatedAlignmentConfig)
+    segmentation: SegmentationConfig = field(default_factory=SegmentationConfig)
+    # Images whose SfM points reproject validly below this fraction are skipped.
+    min_valid_sfm_fraction: float = 0.25
+
+
+@dataclass(eq=False)
+class AdaptiveSubsamplingConfig:
+    min_stride: int = 5
+    max_stride: int = 15
+
+
+@dataclass(eq=False)
+class SfmPointsMaskConfig:
+    enabled: bool = True
+    patches_per_image_side: int = 20
+    max_sfm_points_per_patch: int = 15
+
+
+@dataclass(eq=False)
+class DepthSubsamplingConfig:
+    method: Literal["static", "adaptive"] = "static"
+    factor: int = 10
+    adaptive: AdaptiveSubsamplingConfig = field(default_factory=AdaptiveSubsamplingConfig)
+    sfm_mask: SfmPointsMaskConfig = field(default_factory=SfmPointsMaskConfig)
+
+
+@dataclass(eq=False)
+class PointCloudPostprocessConfig:
+    lof_outlier_removal: bool = False
+    lof_neighbors: int = 40
+    merge_subsample: bool = False
+    merge_max_aspect_ratio: float = 1.1
+    merge_extent_multiplier: float = 1.0
+    merge_impl: Literal["native", "voxel"] = "native"
+
+
+@dataclass(eq=False)
+class MonocularDepthInitConfig:
+    # Only "stub" runs in the port yet; the depth networks raise (check_slice).
+    predictor: Literal[
+        "stub", "depth_anything_v2", "metric3d", "moge", "unidepth", "depth_pro",
+    ] = "metric3d"
+    backbone: str = "vitl"
+    metric: bool = True
+    metric_variant: Literal["indoor", "outdoor"] = "indoor"
+    alignment: DepthAlignmentConfig = field(default_factory=DepthAlignmentConfig)
+    subsampling: DepthSubsamplingConfig = field(default_factory=DepthSubsamplingConfig)
+    postprocess: PointCloudPostprocessConfig = field(default_factory=PointCloudPostprocessConfig)
+    depth_gradient_mask: bool = False
+    depth_gradient_threshold: float = 0.1
+    include_sfm_points: bool = True
+    noise_frac: float = 0.0
+    # PLY export of the init cloud: accepted, but raises (check_slice).
+    pts_only: bool = False
+    export_ply: bool = False
+    pts_output_dir: Optional[str] = None
+    pts_output_per_image: bool = False
+    cache_dir: str = "__mono_depth_cache__"
+    use_cache: bool = True
+    scale_clamp_quantile: float = 0.0
+    allow_random_weights: bool = False
+    # Images per predictor call; the stub predicts one at a time either way.
+    predict_batch_size: int = 1
+
+
+@dataclass(eq=False)
 class Config:
     # Data
     data_dir: str = "data/360_v2/garden"
@@ -59,9 +178,7 @@ class Config:
     init_extent: float = 3.0
     init_opa: float = 0.1
     init_scale: float = 1.0
-    # Monocular-depth init settings (JAX MonocularDepthInitConfig) arrive
-    # with the mdi slice; None until then.
-    mdi: Optional[object] = None
+    mdi: MonocularDepthInitConfig = field(default_factory=MonocularDepthInitConfig)
 
     # Training schedule
     max_steps: int = 30_000
@@ -155,14 +272,23 @@ class Config:
     gaussian_shards: int = 1
 
 
+# Monocular-depth-init settings not ported yet: (condition on cfg.mdi,
+# what it selects, the ROADMAP queue entry that ports it).
+_LATER_MDI = (
+    (lambda m: m.predictor != "stub", "depth networks other than the stub predictor",
+     "the depth-network slice"),
+    (lambda m: m.alignment.segmentation.method == "sam", "SAM segmentation",
+     "the depth-network slice"),
+    (lambda m: m.export_ply or m.pts_only or m.pts_output_dir or m.pts_output_per_image,
+     "PLY export of the init cloud", "the eval/integration slice"),
+)
+
 # (condition, what it selects, the ROADMAP queue entry that ports it)
 _LATER = (
-    (lambda c: c.init_type == "monocular_depth", "monocular-depth init", "the mdi slice"),
     (lambda c: not isinstance(c.strategy, DefaultStrategyConfig), "the MCMC strategy", "the MCMC/aux slice"),
     (lambda c: c.pose_opt or c.pose_noise > 0, "pose optimization", "the MCMC/aux slice"),
     (lambda c: c.app_opt, "appearance optimization", "the MCMC/aux slice"),
     (lambda c: c.use_bilateral_grid, "the bilateral grid", "the MCMC/aux slice"),
-    (lambda c: c.rasterizer_impl == "xla", "the dense rasterizer oracle", "the rasterize_ref slice"),
     (lambda c: c.patch_size, "random patch crops", "the eval/integration slice"),
     (lambda c: c.ckpt, "checkpoint loading", "the checkpoint slice"),
     (lambda c: c.save_ply, "PLY export", "the eval/integration slice"),
@@ -177,13 +303,27 @@ _LATER = (
 )
 
 
+def _raise_later(what: str, later: str):
+    raise NotImplementedError(
+        f"{what} is not ported to gs_init_tpu_torch yet ({later} in ROADMAP.md)"
+    )
+
+
+def check_mdi(mdi: MonocularDepthInitConfig) -> None:
+    """Raise NotImplementedError on monocular-depth-init settings the port
+    does not run yet."""
+    for cond, what, later in _LATER_MDI:
+        if cond(mdi):
+            _raise_later(what, later)
+
+
 def check_slice(cfg: Config) -> None:
-    """Raise NotImplementedError on settings this slice does not run."""
+    """Raise NotImplementedError on settings the port does not run yet."""
     for cond, what, later in _LATER:
         if cond(cfg):
-            raise NotImplementedError(
-                f"{what} is not ported to gs_init_tpu_torch yet ({later} in ROADMAP.md)"
-            )
+            _raise_later(what, later)
+    if cfg.init_type == "monocular_depth":
+        check_mdi(cfg.mdi)
 
 
 def to_dict(cfg) -> dict:

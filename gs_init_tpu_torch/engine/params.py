@@ -77,13 +77,17 @@ def init_from_points(
     init_opacity: float = 0.1,
     init_scale: float = 1.0,
     generator: Optional[torch.Generator] = None,
+    scale_clamp_quantile: float = 0.0,
 ) -> GaussianState:
-    """SfM point-cloud initialisation (reference runner.py:53-138).
+    """Point-cloud initialisation from SfM or monocular-depth points
+    (reference runner.py:53-138).
 
     Scale = log(mean kNN(3) distance * init_scale); a uniform random subset
-    when the cloud exceeds capacity; random unit quaternions. Tensors are
-    made on ``points.device``; ``generator`` (on that device) draws the
-    subset and the quaternions."""
+    when the cloud exceeds capacity; random unit quaternions. With
+    ``scale_clamp_quantile`` > 0 the kNN distances are first clamped to
+    that quantile, so a few isolated points cannot spawn huge gaussians
+    (reference limit_init_scale). Tensors are made on ``points.device``;
+    ``generator`` (on that device) draws the subset and the quaternions."""
     dev = points.device
     if generator is None:
         generator = torch.Generator(device=dev)
@@ -95,6 +99,8 @@ def init_from_points(
     else:
         points, rgbs = points[:n], rgbs[:n]
     dist = torch.clamp(mean_knn_dist(points, k=3), min=1e-7)
+    if scale_clamp_quantile > 0.0:
+        dist = torch.clamp(dist, max=quantile(dist, scale_clamp_quantile))
     scales = torch.log(dist * init_scale)[:, None].repeat(1, 3)
 
     k = num_sh_bases(sh_degree)
@@ -115,6 +121,17 @@ def init_from_points(
     )
     alive = torch.arange(capacity, device=dev) < n
     return GaussianState(params=params, alive=alive)
+
+
+def quantile(x: torch.Tensor, q: float) -> torch.Tensor:
+    """The q-quantile of a 1-D tensor with linear interpolation, as
+    ``jnp.quantile``; by sorting, so any length (``torch.quantile`` refuses
+    more than 2^24 elements)."""
+    s = torch.sort(x).values
+    pos = q * (s.shape[0] - 1)
+    lo = int(math.floor(pos))
+    hi = min(lo + 1, s.shape[0] - 1)
+    return s[lo] + (s[hi] - s[lo]) * (pos - lo)
 
 
 def init_random(

@@ -1,13 +1,13 @@
 """Training runner for the default path — port of
 ``gs_init_tpu/engine/runner.py``.
 
-SfM (or random) init from the parser's points, the batch loop (batches
-built synchronously), the refine and opacity-reset cadence of the default
-strategy, pair-capacity growth when the compositor's pair table
-overflows, and ``eval`` with PSNR and SSIM. MCMC, meshes, pose /
-appearance / bilateral modules, monocular-depth init, checkpoints,
-trajectories, compression and PLY export raise (``config.check_slice``
-and the methods below name the later slice).
+SfM, random or monocular-depth init (the stub predictor, ``mdi/init.py``),
+the batch loop (batches built synchronously), the refine and
+opacity-reset cadence of the default strategy, pair-capacity growth when
+the compositor's pair table overflows, and ``eval`` with PSNR and SSIM.
+MCMC, meshes, pose / appearance / bilateral modules, the depth networks,
+checkpoints, trajectories, compression and PLY export raise
+(``config.check_slice`` and the methods below name the later slice).
 """
 from __future__ import annotations
 
@@ -22,6 +22,7 @@ import torch
 from ..config import Config, check_slice, to_dict
 from ..datasets.parser import Dataset, Parser
 from ..device import generator, resolve_device
+from ..mdi.init import pts_and_rgb_from_monocular_depth
 from ..ops.render import rasterize
 from ..ops.ssim import psnr, ssim
 from .optim import init_adam_state, make_adam_config
@@ -47,9 +48,11 @@ class Runner:
         trainset: Optional[Dataset] = None,
         valset: Optional[Dataset] = None,
         device=None,
+        mdi_model=None,  # a depth predictor for monocular-depth init (tests, e2e)
     ):
         check_slice(cfg)
         self.cfg = cfg
+        self._mdi_model = mdi_model
         self.device = resolve_device(device)
         self.parser = parser or Parser(
             cfg.data_dir, factor=cfg.data_factor, normalize=cfg.normalize_world_space,
@@ -84,10 +87,16 @@ class Runner:
                 init_opacity=cfg.init_opa, init_scale=cfg.init_scale, device=self.device,
             )
             return
-        if cfg.init_type != "sfm":
+        if cfg.init_type == "sfm":
+            pts, rgb = self.parser.points, self.parser.points_rgb
+        elif cfg.init_type == "monocular_depth":
+            pts, rgb = pts_and_rgb_from_monocular_depth(
+                cfg, self.parser, model=self._mdi_model, device=self.device
+            )
+        else:
             raise ValueError(f"unknown init_type {cfg.init_type!r}")
-        pts = torch.as_tensor(self.parser.points, device=self.device)
-        rgb = torch.as_tensor(self.parser.points_rgb, device=self.device)
+        pts = torch.as_tensor(pts, device=self.device)
+        rgb = torch.as_tensor(rgb, device=self.device)
         if len(pts) > cfg.max_gaussians:
             print(
                 f"[runner] init points {len(pts)} exceed capacity "
@@ -96,6 +105,9 @@ class Runner:
         self.gstate = init_from_points(
             pts, rgb, cfg.max_gaussians, cfg.sh_degree, init_opacity=cfg.init_opa,
             init_scale=cfg.init_scale, generator=self.gen,
+            scale_clamp_quantile=(
+                cfg.mdi.scale_clamp_quantile if cfg.init_type == "monocular_depth" else 0.0
+            ),
         )
 
     # -------------------------------------------------------------- train
@@ -205,6 +217,7 @@ class Runner:
                 render_mode=render_mode, camera_model=cfg.camera_model,
                 tile_size=cfg.tile_size, pair_capacity=cap, chunk_size=cfg.chunk_size,
                 rasterize_mode="antialiased" if cfg.antialiased else "classic",
+                impl=cfg.rasterizer_impl,
             )
             overflow = int(info.overflow)
             if overflow == 0:

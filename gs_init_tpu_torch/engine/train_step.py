@@ -159,16 +159,18 @@ def make_train_step(cfg, acfg: AdamConfig, width: int, height: int):
             )
         mark("loss")
 
-        inputs = [leaves[k] for k in PARAM_NAMES] + [dummy]
-        if pair_dummy is not None:
-            inputs.append(pair_dummy)
+        # Per-pair absolute gradients come from the compositor's absgrad
+        # tap; the dense oracle (impl="xla") has none, and the statistics
+        # fall back to the screen-space gradients, as in the JAX package.
+        absgrad = pair_dummy is not None and info.binning is not None
+        inputs = [leaves[k] for k in PARAM_NAMES] + [dummy] + ([pair_dummy] if absgrad else [])
         grads = torch.autograd.grad(loss, inputs)
         mark("backward")
         adam = adam_update(
             p, GaussianParams(**dict(zip(PARAM_NAMES, grads[:6]))), adam, acfg, step
         )
         mark("adam")
-        stats_grads = grads[7].reshape(c, -1, 2) if use_absgrad else grads[6]
+        stats_grads = grads[7].reshape(c, -1, 2) if absgrad else grads[6]
         sstate = default_strategy.update_state(sstate, stats_grads, info.radii, width, height)
         mark("stats")
         metrics = dict(
@@ -177,7 +179,10 @@ def make_train_step(cfg, acfg: AdamConfig, width: int, height: int):
             ssim=ssim_val.detach(),
             overflow=info.overflow,
             alpha_mean=alpha.detach().mean(),
-            pairs=info.binning.tile_starts[-1],
+            pairs=(
+                info.binning.tile_starts[-1] if info.binning is not None
+                else torch.zeros((), dtype=torch.int32, device=dev)
+            ),
         )
         return gstate, adam, sstate, metrics
 

@@ -1,0 +1,101 @@
+"""Point-cloud postprocessing: LOF outlier removal and merge subsampling —
+port of ``gs_init_tpu/mdi/postprocess.py``.
+
+The merge has two implementations:
+- "native": the exact KD-split merge in C++ (``native/subsampling.cpp``
+  through the port's own binding, ``gs_init_tpu_torch/native.py``). If it
+  cannot be built, it raises: it does not fall back to the voxel merge.
+- "voxel": points merged to voxel centroids, the voxel sized by the mean
+  minimal gaussian extent (numpy on the host).
+LOF and the minimal extents run on ``device``.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from ..ops.lof import lof_inlier_mask
+
+
+def lof_outlier_removal(
+    pts: np.ndarray, rgbs: np.ndarray, k: int = 40, threshold: float = 1.5, device=None
+) -> Tuple[np.ndarray, np.ndarray]:
+    mask = lof_inlier_mask(torch.as_tensor(pts, device=device), k=k, threshold=threshold)
+    mask = mask.cpu().numpy()
+    return pts[mask], rgbs[mask]
+
+
+def compute_minimal_gaussian_extents(
+    pts: np.ndarray,  # [N, 3]
+    viewmats: np.ndarray,  # [C, 4, 4]
+    Ks: np.ndarray,  # [C, 3, 3]
+    widths,
+    heights,
+    device=None,
+) -> np.ndarray:
+    """World-space sampling interval per point: the minimum over the
+    cameras that see it of 2 depth / min(fx, fy); -1 where none does."""
+    T = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
+    p, vm, K = T(pts), T(viewmats), T(Ks)
+    cam = torch.einsum("cij,nj->cni", vm[:, :3, :3], p) + vm[:, None, :3, 3]
+    z = cam[..., 2]
+    f = torch.minimum(K[:, 0, 0], K[:, 1, 1])[:, None]
+    uv = cam[..., :2] / torch.clamp(z[..., None], min=1e-8)
+    pix = torch.einsum("cni,cij->cnj", uv, K[:, :2, :2].transpose(1, 2)) + K[:, None, :2, 2]
+    w, h = T(widths)[:, None], T(heights)[:, None]
+    seen = (z > 0) & (pix[..., 0] >= 0) & (pix[..., 0] < w) & (pix[..., 1] >= 0) & (pix[..., 1] < h)
+    best = torch.where(seen, 2.0 * z / f, torch.full_like(z, float("inf"))).amin(0)
+    return torch.where(torch.isfinite(best), best, torch.full_like(best, -1.0)).cpu().numpy()
+
+
+def voxel_merge_subsample(
+    pts: np.ndarray, rgbs: np.ndarray, extents: np.ndarray, extent_multiplier: float = 1.0
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Merge points into voxel centroids; the voxel side is the mean minimal
+    extent of the observed points times ``extent_multiplier``."""
+    observed = extents > 0
+    if not observed.any():
+        return pts, rgbs
+    vox = float(np.mean(extents[observed])) * extent_multiplier
+    if vox <= 0:
+        return pts, rgbs
+    keys = np.floor(pts / vox).astype(np.int64)
+    uniq, inv = np.unique(keys, axis=0, return_inverse=True)
+    inv = inv.reshape(-1)
+    n = len(uniq)
+    sums = np.zeros((n, 3), np.float64)
+    np.add.at(sums, inv, pts)
+    csums = np.zeros((n, 3), np.float64)
+    np.add.at(csums, inv, rgbs)
+    counts = np.bincount(inv, minlength=n)[:, None]
+    return (sums / counts).astype(np.float32), (csums / counts).astype(np.float32)
+
+
+def native_merge_subsample(
+    pts: np.ndarray,
+    rgbs: np.ndarray,
+    extents: np.ndarray,
+    max_aspect_ratio: float = 1.1,
+    extent_multiplier: float = 1.0,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """The exact KD-split merge (raises if the library cannot be built)."""
+    from .. import native
+
+    return native.subsample_pointcloud(pts, rgbs, extents, max_aspect_ratio, extent_multiplier)
+
+
+def postprocess_point_cloud(cfg, pts, rgbs, viewmats, Ks, widths, heights, device=None):
+    pp = cfg.mdi.postprocess
+    if pp.lof_outlier_removal:
+        pts, rgbs = lof_outlier_removal(pts, rgbs, k=pp.lof_neighbors, device=device)
+    if pp.merge_subsample:
+        extents = compute_minimal_gaussian_extents(pts, viewmats, Ks, widths, heights, device)
+        if pp.merge_impl == "native":
+            pts, rgbs = native_merge_subsample(
+                pts, rgbs, extents, pp.merge_max_aspect_ratio, pp.merge_extent_multiplier
+            )
+        else:
+            pts, rgbs = voxel_merge_subsample(pts, rgbs, extents, pp.merge_extent_multiplier)
+    return pts, rgbs

@@ -1,9 +1,15 @@
 """High-level rasterization — port of ``gs_init_tpu/ops/render.py``.
 
 Projection -> SH colours -> tile binning -> tile compositor (the CUDA
-kernels on the card). The argument surface mirrors the JAX ``rasterize``;
-the dense oracle (``impl="xla"``, JAX ``ops/rasterize_ref.py``) is not
-ported yet, so the tile compositor is the only implementation.
+kernels on the card). The argument surface mirrors the JAX ``rasterize``.
+``impl="xla"`` composites with the dense oracle (``ops/rasterize_ref.py``)
+instead: no binning, no pair capacity (overflow 0), every gaussian against
+every pixel in chunks of ``pixel_chunk``.
+
+``impl="auto"`` is the tile compositor on every device. The JAX package's
+``auto`` picks its dense oracle on the CPU only because Pallas kernels run
+slowly there in interpret mode; the port's CPU path is the compositor's
+plain PyTorch version, which has no such cost.
 """
 from __future__ import annotations
 
@@ -13,6 +19,7 @@ import torch
 
 from .projection import project_gaussians
 from .rasterize import render_tiles, unpack_tiles
+from .rasterize_ref import rasterize_reference
 from .sh import sh_to_color
 from .tiles import TileBinning, bin_gaussians, pack_table
 
@@ -20,8 +27,8 @@ from .tiles import TileBinning, bin_gaussians, pack_table
 class RenderInfo(NamedTuple):
     radii: torch.Tensor  # [C, N] int32
     depths: torch.Tensor  # [C, N]
-    overflow: torch.Tensor  # [] int32 pairs dropped by the pair capacity
-    binning: TileBinning
+    overflow: torch.Tensor  # [] int32 pairs dropped by the pair capacity (0 for xla)
+    binning: Optional[TileBinning]  # None for the dense oracle
 
 
 def rasterize(
@@ -52,18 +59,15 @@ def rasterize(
     means2d_dummy: Optional[torch.Tensor] = None,  # [C, N, 2] zeros; grad tap
     pair_dummy: Optional[torch.Tensor] = None,  # [C*N, 2] zeros; absgrad tap
     impl: str = "auto",
+    pixel_chunk: int = 4096,  # the dense oracle's pixels per chunk
     sh_mask: Optional[torch.Tensor] = None,  # [num_bases] 0/1 schedule mask
 ):
     """Render gaussians. Returns (render [C,H,W,3|4], alpha [C,H,W,1], info).
 
     Differentiate w.r.t. ``means2d_dummy`` (zeros) for screen-space
-    positional gradients, and w.r.t. ``pair_dummy`` (zeros) for absgrad."""
-    if impl == "xla":
-        raise NotImplementedError(
-            "impl='xla' (the dense oracle, gs_init_tpu/ops/rasterize_ref.py) "
-            "is queued for a later slice of the port; use the tile compositor"
-        )
-    if impl not in ("auto", "pallas"):
+    positional gradients, and w.r.t. ``pair_dummy`` (zeros) for absgrad
+    (the dense oracle does not use ``pair_dummy``)."""
+    if impl not in ("auto", "pallas", "xla"):
         raise ValueError(f"unknown rasterizer impl {impl!r}")
     if render_mode not in ("RGB", "RGB+ED"):
         raise ValueError(f"unsupported render_mode {render_mode!r}")
@@ -92,23 +96,32 @@ def rasterize(
     else:
         cam_colors = colors
 
-    binning = bin_gaussians(
-        means2d, proj.radii, proj.depths, width, height, tile_size, pair_capacity,
-        chunk=chunk_size, extents=proj.extents,
-    )
-    table = pack_table(means2d, proj.conics, proj.opacities, cam_colors, proj.depths)
-    num_tiles = num_cams * binning.num_tiles_x * binning.num_tiles_y
-    want_absgrad = pair_dummy is not None
-    if pair_dummy is None:
-        pair_dummy = torch.zeros((table.shape[0], 2), dtype=table.dtype, device=table.device)
-    out = render_tiles(
-        table, pair_dummy, binning.gid_sorted, binning.tile_starts, num_tiles,
-        binning.num_tiles_x, binning.num_tiles_y, tile_size, chunk_size,
-        render_mode == "RGB+ED", want_absgrad,
-    )
-    color, alpha, depth_acc = unpack_tiles(
-        out, num_cams, binning.num_tiles_x, binning.num_tiles_y, tile_size, width, height
-    )
+    if impl == "xla":
+        color, alpha, depth_acc = rasterize_reference(
+            proj._replace(means2d=means2d), cam_colors, width, height,
+            pixel_chunk=pixel_chunk, tile_size=tile_size,
+        )
+        binning = None
+        overflow = torch.zeros((), dtype=torch.int32, device=means.device)
+    else:
+        binning = bin_gaussians(
+            means2d, proj.radii, proj.depths, width, height, tile_size, pair_capacity,
+            chunk=chunk_size, extents=proj.extents,
+        )
+        table = pack_table(means2d, proj.conics, proj.opacities, cam_colors, proj.depths)
+        num_tiles = num_cams * binning.num_tiles_x * binning.num_tiles_y
+        want_absgrad = pair_dummy is not None
+        if pair_dummy is None:
+            pair_dummy = torch.zeros((table.shape[0], 2), dtype=table.dtype, device=table.device)
+        out = render_tiles(
+            table, pair_dummy, binning.gid_sorted, binning.tile_starts, num_tiles,
+            binning.num_tiles_x, binning.num_tiles_y, tile_size, chunk_size,
+            render_mode == "RGB+ED", want_absgrad,
+        )
+        color, alpha, depth_acc = unpack_tiles(
+            out, num_cams, binning.num_tiles_x, binning.num_tiles_y, tile_size, width, height
+        )
+        overflow = binning.overflow
     if backgrounds is not None:
         color = color + (1.0 - alpha)[..., None] * backgrounds[:, None, None, :]
     if render_mode == "RGB+ED":
@@ -118,7 +131,5 @@ def rasterize(
         render = color
     if masks is not None:
         render = render * masks[..., None].to(render.dtype)
-    info = RenderInfo(
-        radii=proj.radii, depths=proj.depths, overflow=binning.overflow, binning=binning
-    )
+    info = RenderInfo(radii=proj.radii, depths=proj.depths, overflow=overflow, binning=binning)
     return render, alpha[..., None], info

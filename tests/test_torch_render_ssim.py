@@ -94,9 +94,18 @@ def test_rasterize_sh_mask(rng):
 
 
 def test_rasterize_raises_on_dense_oracle(rng):
+    """The dense oracle is ported: ``impl="xla"`` renders what the tile
+    compositor renders on a sparse scene (no tile stops early, so within
+    f32 rounding), with no binning; an unknown impl raises."""
     sc = scene(rng, n_g=4)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        rasterize(*(t(sc[k]) for k in KEYS), t(sc["viewmats"]), t(sc["Ks"]), W, H, impl="xla")
+    args = [t(sc[k]) for k in KEYS] + [t(sc["viewmats"]), t(sc["Ks"]), W, H]
+    ref, ref_alpha, info = rasterize(*args, impl="xla", **KW)
+    tiled, tiled_alpha, _ = rasterize(*args, impl="pallas", **KW)
+    assert info.binning is None and int(info.overflow) == 0 and float(ref_alpha.max()) > 0.1
+    np.testing.assert_allclose(n(ref), n(tiled), atol=1e-5)
+    np.testing.assert_allclose(n(ref_alpha), n(tiled_alpha), atol=1e-5)
+    with pytest.raises(ValueError, match="unknown rasterizer impl"):
+        rasterize(*args, impl="dense", **KW)
 
 
 def test_ssim_psnr_values_and_grads(rng):

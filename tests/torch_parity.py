@@ -78,3 +78,16 @@ def assert_close_scaled(got, want, atol, err_msg=""):
     got, want = n(got), n(want)
     scale = float(np.abs(want).max()) + 1e-12
     np.testing.assert_allclose(got / scale, want / scale, atol=atol, rtol=0, err_msg=err_msg)
+
+
+def jax_hypotheses(key, valid, num_hyp: int, sample_size: int = 4) -> np.ndarray:
+    """The JAX package's RANSAC sample indices [num_hyp, sample_size]
+    (``gs_init_tpu/mdi/alignment/ransac.py``'s ``sample_idx``), rebuilt call
+    for call so the port's RANSAC can be given the same hypotheses."""
+    import jax
+    import jax.numpy as jnp
+
+    logits = jnp.where(jnp.asarray(valid), 0.0, -jnp.inf)
+    keys = jax.random.split(key, num_hyp)
+    draw = lambda k: jax.random.categorical(k, logits, shape=(sample_size,))
+    return np.array(jax.vmap(draw)(keys))
