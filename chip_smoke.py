@@ -21,7 +21,11 @@ no result line.
    versions; the dense oracle (render impl="xla") against the tile
    compositor on the card (2,000 gaussians, 160x120, tile 16), values and
    gradients; and one points_from_depth (RANSAC, 2,500 hypotheses,
-   noise-free stub depth, 1296x840) on the card against the CPU.
+   noise-free stub depth, 1296x840) on the card against the CPU. Also the
+   same train step with pose, appearance and bilateral-grid optimisation
+   on (the aux groups' Adam moments too); MCMC relocation and noise with
+   the same draws (8192 slots), and the card's own draws; color_correct on
+   a natural and on a constant image (648x420).
 3. The main path: the train step at bench.py's flagship scenario (300k
    gaussians, capacity 393216, 1296x840, tile 32, chunk 128, SH degree 3,
    L1 + SSIM, Adam, densification statistics), a step function built
@@ -35,6 +39,13 @@ no result line.
    per tile, the time of both, and each kernel's bound from this run's
    data. The scan probe's device-only time from the profiler, beside an
    empty kernel launched the same way (the launch floor).
+3b. The flagship under the mcmc preset (init opacity 0.5, scale 0.1,
+   opacity and scale regularisers), a relocation every 10 steps from step
+   0 (2 in the 20 timed steps): step, relocation and noise times, device
+   busy time, peak memory, and the alive count after each relocation,
+   which must be the 5% tranche. Compositor launches once per step.
+3c. The flagship with pose, appearance and bilateral-grid optimisation:
+   step and phase times (the aux Adam has its own mark), peak memory.
 5. The Runner end to end: a synthetic COLMAP scene at 648x420 with 12
    cameras, 300 steps with refines at steps 100 and 200; eval PSNR must
    rise from the initial gaussians to the trained ones.
@@ -50,7 +61,14 @@ no result line.
    the clustered scene at 648x420 with 12 cameras, 800 steps with
    e2e_quality.py's run() settings, for sfm, monocular_depth and sfm+mdi
    init; both mdi arms' eval PSNR must beat the sfm arm's, and the
-   compositor kernels must launch once per train step.
+   compositor kernels must launch once per train step. Then the sfm arm
+   again with the batch prefetch thread off, for its steps per second.
+7. The trainer entry point: gs_init_tpu_torch.trainer.main on phase 5's
+   scene, once per preset, 300 steps with checkpoints at 150 and 300, PLY
+   export and compression; eval PSNR must rise, MCMC's alive count stay
+   within cap_max, the exports hold every live splat, the eval-only
+   restart (--ckpt) reproduce the run's PSNR to 1e-6 and write trajectory
+   frames, and a Runner loaded from ckpt_150 take a finite step.
 
 The line before the last lists the kernels as JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -117,6 +135,16 @@ SCAN_RTOL = 1e-5
 # on two math libraries, so the first Adam moment (0.1 x gradient) is held
 # to 1e-3 of each leaf's max.
 STEP_RTOL = 1e-3
+# The aux groups' first Adam moments in that step, each within 1e-3 of its
+# leaf's max: the bilateral grid's backward is a float scatter-add whose
+# order differs on the card, and the appearance MLP runs on cuBLAS.
+AUX_RTOL = 1e-3
+# MCMC relocation and noise, card against CPU with the same draws: each
+# parameter within 1e-6 of its leaf's max |value| (opacity and scale
+# corrections through lgamma, exp and log on two math libraries).
+MCMC_RTOL = 1e-6
+# color_correct (float64 normal equations) on the card against the CPU.
+CC_ATOL = 1e-5
 # The dense oracle against the tile compositor on a scene where no tile
 # stops early (T stays above 1e-4): forward within 1e-4 abs, gradients
 # within 1e-3 of each leaf's max (two compositing orders, autograd through
@@ -305,16 +333,22 @@ def check_scan_kernel(dev):
     return max(sum_err, prod_err)
 
 
-def step_card_vs_cpu(dev):
+def step_card_vs_cpu(dev, aux_groups=False):
     """One train step of a small scene on the card and on the CPU from the
-    same state: same loss, Adam moments and densification statistics."""
+    same state: same loss, Adam moments and densification statistics; with
+    `aux_groups`, pose, appearance and bilateral-grid optimisation on and
+    the aux groups' Adam moments too."""
     import torch
     from gs_init_tpu_torch.config import Config
     from gs_init_tpu_torch.datasets.synthetic import look_at
+    from gs_init_tpu_torch.device import generator
     from gs_init_tpu_torch.engine import optim
-    from gs_init_tpu_torch.engine.params import PARAM_NAMES, init_from_points, state_from_numpy
+    from gs_init_tpu_torch.engine.appearance import init_appearance_params
+    from gs_init_tpu_torch.engine.params import (
+        PARAM_NAMES, AuxParams, aux_from_numpy, aux_leaves, init_from_points, state_from_numpy,
+    )
     from gs_init_tpu_torch.engine.strategy import default as dstrat
-    from gs_init_tpu_torch.engine.train_step import Batch, make_train_step
+    from gs_init_tpu_torch.engine.train_step import Batch, init_aux_opt, make_train_step
 
     width, height, n, cap = 160, 120, 1500, 2048
     rng = np.random.default_rng(3)
@@ -327,38 +361,142 @@ def step_card_vs_cpu(dev):
     alive = g0.alive.numpy()
     cfg = Config(sh_degree=3, sh_degree_interval=1, max_gaussians=cap, pair_capacity=1 << 16,
                  tile_size=16, chunk_size=128, max_steps=100)
+    aux_np = dict(pose=None, app=None, grids=None)
+    if aux_groups:
+        cfg.pose_opt = cfg.app_opt = cfg.use_bilateral_grid = True
+        cfg.pose_opt_lr = 1e-3
+        app = init_appearance_params(generator(1), 2, cap, sh_degree=3)
+        aux_np = dict(
+            pose=(rng.normal(size=(2, 9)) * 0.01).astype(np.float32),
+            app={k: v.numpy() for k, v in vars(app).items()},
+            grids=np.tile(np.eye(3, 4, dtype=np.float32).reshape(12), (2, 8, 16, 16, 1))
+            + rng.normal(0, 0.01, (2, 8, 16, 16, 12)).astype(np.float32),
+        )
     acfg = optim.make_adam_config(cfg, 2.0)
     c2w = look_at(np.array([0.0, 0.0, -4.0]), np.zeros(3)).astype(np.float32)
     f = 0.9 * width
     K = np.array([[f, 0, width / 2], [0, f, height / 2], [0, 0, 1]], np.float32)
     target = rng.uniform(0, 1, (1, height, width, 3)).astype(np.float32)
-    res = {}
+    res = []
     for d in (torch.device("cpu"), dev):
         T = lambda x: torch.as_tensor(x, device=d)
         g = state_from_numpy(leaves, alive, d)
         a = optim.init_adam_state(g.params)
         s = dstrat.init_state(cap, d)
         batch = Batch(camtoworlds=T(c2w)[None], Ks=T(K)[None], pixels=T(target),
-                      image_ids=torch.zeros((1,), dtype=torch.long, device=d))
-        g, a, s, m = make_train_step(cfg, acfg, width, height)(g, a, s, batch, 0)
-        res[d.type] = (float(m["loss"]), int(m["pairs"]), a, s)
-    (lc, pc, ac, sc), (lg, pg, ag, sg) = res["cpu"], res["cuda"]
+                      image_ids=torch.ones((1,), dtype=torch.long, device=d))
+        aux = aux_from_numpy(device=d, **aux_np)
+        g, a, s, aux, aux_opt, m = make_train_step(cfg, acfg, width, height)(
+            g, a, s, aux, init_aux_opt(aux), batch, 0
+        )
+        mu = [] if not aux_groups else aux_leaves(AuxParams(
+            pose=aux_opt.pose.mu, app=aux_opt.app.mu, grids=aux_opt.grids.mu))
+        res.append((float(m["loss"]), int(m["pairs"]), a, s, mu))
+    (lc, pc, ac, sc, xc), (lg, pg, ag, sg, xg) = res
     worst = 0.0
     for k in PARAM_NAMES:
         want, got = getattr(ac.mu, k), getattr(ag.mu, k).cpu()
         worst = max(worst, float((got - want).abs().max() / want.abs().max().clamp(min=1e-30)))
+    aux_err = [float((y.cpu() - x).abs().max() / x.abs().max().clamp(min=1e-30)) for x, y in zip(xc, xg)]
     gw, gg = sc.grad2d, sg.grad2d.cpu()
     g_err = float((gg - gw).abs().max() / gw.abs().max().clamp(min=1e-30))
     # A radius is a ceil of a float that the two math libraries may round
     # apart: allow one pixel, and a few gaussians whose visibility flips.
     seen_diff = int((sc.count != sg.count.cpu()).sum())
     r_diff = float((sc.radii_max - sg.radii_max.cpu()).abs().max()) * max(width, height)
-    log(f"  train step card vs CPU ({width}x{height}, {n} gaussians, {pg} vs {pc} pairs): loss "
+    tag = " with pose, appearance and bilateral grid" if aux_groups else ""
+    log(f"  train step{tag} card vs CPU ({width}x{height}, {n} gaussians, {pg} vs {pc} pairs): loss "
         f"{lg:.7f} vs {lc:.7f}; Adam mu max err / leaf max {worst:.3e}, grad2d {g_err:.3e} "
-        f"(tol {STEP_RTOL:g}); visibility differs for {seen_diff}, max radius by {r_diff:.3f} px")
+        f"(tol {STEP_RTOL:g}); visibility differs for {seen_diff}, max radius by {r_diff:.3f} px"
+        + (f"; aux Adam mu max err / leaf max (pose, app x8, grids) "
+           f"{[float(f'{e:.3e}') for e in aux_err]} (tol {AUX_RTOL:g})" if aux_groups else ""))
     if (abs(pg - pc) > 1e-3 * pc or abs(lg - lc) > 1e-4 * abs(lc) or worst > STEP_RTOL
-            or g_err > STEP_RTOL or seen_diff > 2 or r_diff > 1.001):
-        raise RuntimeError("the train step on the card disagrees with the same step on the CPU")
+            or g_err > STEP_RTOL or seen_diff > 2 or r_diff > 1.001 or max(aux_err, default=0) > AUX_RTOL):
+        raise RuntimeError(f"the train step{tag} on the card disagrees with the same step on the CPU")
+
+
+def mcmc_card_vs_cpu(dev, cap=8192, n=6000):
+    """mcmc.refine and add_noise on the card and on the CPU with the same
+    targets and normals: the same alive set and receivers (the slots whose
+    moments were zeroed), parameters within MCMC_RTOL of each leaf's max,
+    zeroed moments exactly zero. Then the card's own draws: every target a
+    live slot, and slot 0 everywhere when none is live."""
+    import torch
+    from gs_init_tpu_torch.config import MCMCStrategyConfig
+    from gs_init_tpu_torch.device import generator
+    from gs_init_tpu_torch.engine import optim
+    from gs_init_tpu_torch.engine.params import PARAM_NAMES, init_from_points, state_from_numpy
+    from gs_init_tpu_torch.engine.strategy import default as dstrat
+    from gs_init_tpu_torch.engine.strategy import mcmc
+
+    rng = np.random.default_rng(4)
+    pts = rng.uniform(-1.0, 1.0, (n, 3)).astype(np.float32)
+    g0 = init_from_points(torch.as_tensor(pts), torch.as_tensor(rng.uniform(0, 1, (n, 3)).astype(np.float32)),
+                          cap, 3)
+    leaves = {k: getattr(g0.params, k).numpy().copy() for k in PARAM_NAMES}
+    leaves["opacities"] = rng.normal(-2.0, 3.0, cap).astype(np.float32)  # some below min_opacity
+    leaves["scales"] += rng.normal(0, 0.3, leaves["scales"].shape).astype(np.float32)
+    moments = {k: rng.normal(size=v.shape).astype(np.float32) for k, v in leaves.items()}
+    alive = g0.alive.numpy()
+    cfg = MCMCStrategyConfig(cap_max=7000)
+    g = state_from_numpy(leaves, alive, "cpu")
+    opa, _, live = mcmc.live_mask(g, cfg)
+    targets = mcmc.draw_targets(opa, live, generator(5))
+    eps = mcmc.noise_eps(cap, generator(6))
+    res = []
+    for d in (torch.device("cpu"), dev):
+        g = state_from_numpy(leaves, alive, d)
+        a = optim.adam_from_numpy(moments, {k: np.abs(v) for k, v in moments.items()}, 3, d)
+        g, a, _ = mcmc.refine(g, a, dstrat.init_state(cap, d), targets.to(d), cfg)
+        g = mcmc.add_noise(g, eps.to(d), 1.6e-4, cfg)
+        res.append((g, a))
+    (gc, ac), (gg, ag) = res
+    zeroed_c = ac.mu.opacities == 0
+    zeroed_g = (ag.mu.opacities == 0).cpu()
+    p_err = max(float((getattr(gg.params, k).cpu() - getattr(gc.params, k)).abs().max()
+                      / getattr(gc.params, k).abs().max()) for k in PARAM_NAMES)
+    zero_ok = all(bool((getattr(m, k)[zeroed_g.to(dev)] == 0).all()) for m in (ag.mu, ag.nu) for k in PARAM_NAMES)
+    n0, n1 = int(alive.sum()), int(gg.alive.sum())
+    log(f"  mcmc relocate + noise card vs CPU ({cap} slots, {n0} alive, {int((~live & g0.alive).sum())} dead): "
+        f"alive {n0} -> {n1}, alive equal {bool(torch.equal(gc.alive, gg.alive.cpu()))}, receivers equal "
+        f"{bool(torch.equal(zeroed_c, zeroed_g))} ({int(zeroed_g.sum())} zeroed); params max err / leaf max "
+        f"{p_err:.3e} (tol {MCMC_RTOL:g}); zeroed moments exactly 0: {zero_ok}")
+    if not (torch.equal(gc.alive, gg.alive.cpu()) and torch.equal(zeroed_c, zeroed_g) and zero_ok
+            and p_err <= MCMC_RTOL and n1 == min(cfg.cap_max, int(np.float32(n0) * np.float32(1.05)))):
+        raise RuntimeError("mcmc relocation or noise on the card disagrees with the CPU")
+    g = state_from_numpy(leaves, alive, dev)
+    opa, _, live = mcmc.live_mask(g, cfg)
+    t_card = mcmc.draw_targets(opa, live, generator(7, dev))
+    t_none = mcmc.draw_targets(opa, torch.zeros_like(live), generator(7, dev))
+    if not (bool(live[t_card].all()) and bool((t_none == 0).all())):
+        raise RuntimeError("mcmc.draw_targets on the card drew a slot that is not live")
+
+
+def color_correct_card_vs_cpu(dev, width=648, height=420):
+    """color_correct on the card against the CPU, on a natural image (a
+    smooth field under a colour warp) and on a constant one (rank 1: the
+    minimum-norm fit gives each channel its reference mean)."""
+    import torch
+    from gs_init_tpu_torch.engine.appearance import color_correct
+
+    rng = np.random.default_rng(8)
+    ys, xs = np.mgrid[0:height, 0:width] / max(width, height)
+    ref = np.stack([0.5 + 0.4 * np.sin(3 * xs + 1), 0.5 + 0.4 * np.cos(2 * ys), 0.5 + 0.3 * np.sin(xs + ys)], -1)
+    ref = np.clip(ref + rng.normal(0, 0.02, ref.shape), 0, 1).astype(np.float32)
+    natural = np.clip(0.8 * ref ** 1.3 + 0.05, 0, 1).astype(np.float32)
+    flat = np.full_like(ref, 0.4)
+    errs = []
+    for name, img in (("natural", natural), ("constant", flat)):
+        c = color_correct(torch.as_tensor(img), torch.as_tensor(ref))
+        g = color_correct(torch.as_tensor(img, device=dev), torch.as_tensor(ref, device=dev)).cpu()
+        errs.append(float((g - c).abs().max()))
+        if not bool(torch.isfinite(g).all()):
+            raise RuntimeError(f"color_correct: non-finite output on the {name} image")
+    mean_err = float((g - torch.as_tensor(ref.reshape(-1, 3).mean(0))).abs().max())
+    log(f"  color_correct {width}x{height} card vs CPU: max abs err natural {errs[0]:.3e}, constant "
+        f"{errs[1]:.3e} (tol {CC_ATOL:g}); constant image vs the reference's channel means {mean_err:.3e}")
+    if max(errs) > CC_ATOL or mean_err > CC_ATOL:
+        raise RuntimeError("color_correct on the card disagrees with the CPU")
 
 
 def oracle_vs_compositor(dev, n=2000, width=160, height=120, tile=16):
@@ -473,29 +611,47 @@ def points_from_depth_card_vs_cpu(dev):
 # ------------------------------------------------------------------ phase 3
 
 
-def flagship_setup(dev, n=300_000, cap=393_216, width=1296, height=840):
+def flagship_setup(dev, n=300_000, cap=393_216, width=1296, height=840, variant="default"):
     """bench.py's scenario: a uniform random cloud in a box, kNN scale init,
-    one camera, a random target image."""
+    one camera, a random target image. `variant` "mcmc" takes the mcmc
+    preset's init opacity and scale and regularisers with a relocation every
+    10 steps from step 0; "aux" turns on pose, appearance and bilateral-grid
+    optimisation."""
     import torch
-    from gs_init_tpu_torch.config import Config
+    from gs_init_tpu_torch.config import Config, MCMCStrategyConfig
     from gs_init_tpu_torch.datasets.synthetic import look_at
     from gs_init_tpu_torch.device import generator
     from gs_init_tpu_torch.engine import optim
-    from gs_init_tpu_torch.engine.params import init_from_points
-    from gs_init_tpu_torch.engine.runner import grown_pair_capacity
+    from gs_init_tpu_torch.engine.appearance import (
+        init_appearance_params, init_bilateral_grids, init_pose_params,
+    )
+    from gs_init_tpu_torch.engine.params import AuxParams, init_from_points
+    from gs_init_tpu_torch.engine.runner import snug_pair_capacity
     from gs_init_tpu_torch.engine.strategy import default as dstrat
-    from gs_init_tpu_torch.engine.train_step import Batch, make_train_step
+    from gs_init_tpu_torch.engine.train_step import Batch, init_aux_opt, make_train_step
+    from gs_init_tpu_torch.trainer import build_presets
 
     rng = np.random.default_rng(0)
     pts = np.stack(
         [rng.uniform(-3, 3, n), rng.uniform(-2, 2, n), rng.uniform(-1, 6, n)], -1
     ).astype(np.float32)
     rgbs = rng.uniform(0, 1, (n, 3)).astype(np.float32)
-    cfg = Config(max_steps=30_000, sh_degree=3, max_gaussians=cap, pair_capacity=1 << 21,
-                 tile_size=32, chunk_size=128)
+    cfg = build_presets()["mcmc" if variant == "mcmc" else "default"]
+    cfg.max_steps, cfg.max_gaussians, cfg.pair_capacity = 30_000, cap, 1 << 21
+    if variant == "mcmc":
+        cfg.strategy = MCMCStrategyConfig(refine_start_iter=0, refine_every=10)
+    aux = AuxParams()
+    if variant == "aux":
+        cfg.pose_opt = cfg.app_opt = cfg.use_bilateral_grid = True
+        aux = AuxParams(
+            pose=init_pose_params(1, device=dev),
+            app=init_appearance_params(generator(1, dev), 1, cap, sh_degree=cfg.sh_degree, device=dev),
+            grids=init_bilateral_grids(1, cfg.bilateral_grid_shape, device=dev),
+        )
     t0 = time.perf_counter()
     gstate = init_from_points(torch.as_tensor(pts, device=dev), torch.as_tensor(rgbs, device=dev),
-                              cap, cfg.sh_degree, generator=generator(0, dev))
+                              cap, cfg.sh_degree, init_opacity=cfg.init_opa, init_scale=cfg.init_scale,
+                              generator=generator(0, dev))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     acfg = optim.make_adam_config(cfg, scene_scale=4.0)
@@ -505,38 +661,62 @@ def flagship_setup(dev, n=300_000, cap=393_216, width=1296, height=840):
     target = rng.uniform(0, 1, (1, height, width, 3)).astype(np.float32)
     T = lambda x: torch.as_tensor(x, device=dev)
     ctx = dict(
-        cfg=cfg, gstate=gstate, adam=optim.init_adam_state(gstate.params),
-        sstate=dstrat.init_state(cap, dev),
+        cfg=cfg, acfg=acfg, gstate=gstate, adam=optim.init_adam_state(gstate.params),
+        sstate=dstrat.init_state(cap, dev), aux=aux, aux_opt=init_aux_opt(aux),
         batch=Batch(camtoworlds=T(c2w)[None], Ks=T(K)[None], pixels=T(target),
                     image_ids=torch.zeros((1,), dtype=torch.long, device=dev)),
         make_step=lambda: make_train_step(cfg, acfg, width, height), step=0,
+        gen=generator(cfg.seed, dev), alive_after_relocation=[],
     )
     ctx["step_fn"] = ctx["make_step"]()
-    # Size the pair table from one step, as the Runner does on overflow.
+    # Size the pair table from one step by the Runner's rule; under MCMC the
+    # demand grows by the two 5% tranches of alive gaussians in the timed run.
     m = run_step(ctx)
     pairs, overflow = int(m["pairs"]), int(m["overflow"])
-    cfg.pair_capacity = grown_pair_capacity(pairs, overflow, cfg.chunk_size)
-    log(f"  flagship set-up: {n} gaussians (capacity {cap}) at {width}x{height}, kNN init "
-        f"{init_s:.3f} s; first step {pairs} pairs + {overflow} overflow -> pair capacity "
-        f"{cfg.pair_capacity}")
+    growth = 1.05 ** 2 if variant == "mcmc" else 1.0
+    cfg.pair_capacity = snug_pair_capacity(int((pairs + overflow) * growth))
+    log(f"  flagship set-up ({variant}): {n} gaussians (capacity {cap}) at {width}x{height}, init "
+        f"opacity {cfg.init_opa}, scale {cfg.init_scale}, kNN init {init_s:.3f} s; first step {pairs} "
+        f"pairs + {overflow} overflow -> pair capacity {cfg.pair_capacity}")
     return ctx
 
 
 def run_step(ctx, mark=None):
-    ctx["gstate"], ctx["adam"], ctx["sstate"], m = ctx["step_fn"](
-        ctx["gstate"], ctx["adam"], ctx["sstate"], ctx["batch"], ctx["step"], mark=mark
+    """One train step; under the MCMC strategy followed, as in
+    Runner.train_iteration, by a relocation on its steps and the noise."""
+    from gs_init_tpu_torch.config import MCMCStrategyConfig
+    from gs_init_tpu_torch.engine.strategy import mcmc
+
+    mark = mark or (lambda name: None)
+    step, s = ctx["step"], ctx["cfg"].strategy
+    ctx["gstate"], ctx["adam"], ctx["sstate"], ctx["aux"], ctx["aux_opt"], m = ctx["step_fn"](
+        ctx["gstate"], ctx["adam"], ctx["sstate"], ctx["aux"], ctx["aux_opt"], ctx["batch"], step,
+        mark=mark,
     )
+    if isinstance(s, MCMCStrategyConfig):
+        if s.refine_start_iter < step < s.refine_stop_iter and step % s.refine_every == 0:
+            n_before = ctx["gstate"].alive.sum()
+            ctx["gstate"], ctx["adam"], ctx["sstate"] = mcmc.relocate(
+                ctx["gstate"], ctx["adam"], ctx["sstate"], ctx["gen"], s
+            )
+            mark("relocate")
+            ctx["alive_after_relocation"].append((step, n_before, ctx["gstate"].alive.sum()))
+        acfg = ctx["acfg"]
+        lr = float(acfg.lrs["means"] * acfg.means_decay_gamma**step)
+        ctx["gstate"] = mcmc.add_noise(ctx["gstate"], mcmc.noise_eps(ctx["cfg"].max_gaussians, ctx["gen"]), lr, s)
+        mark("noise")
     ctx["step"] += 1
     return m
 
 
-def main_path(ctx, warm=3, timed=20):
+def main_path(ctx, warm=3, timed=20, tag="main path"):
     """The counted run: launch counts from 0, warm-up, timed steps."""
     import torch
     from gs_init_tpu_torch import kernels
 
-    phases = ("setup", "render", "loss", "backward", "adam", "stats")
     kernels.reset_launch_counts()
+    # The path's own peak, without the set-up step's oversized pair table.
+    torch.cuda.reset_peak_memory_stats()
     # A fresh step function: its first call runs the scan probe, as the
     # Runner's does.
     ctx["step_fn"] = ctx["make_step"]()
@@ -564,28 +744,59 @@ def main_path(ctx, warm=3, timed=20):
     want = dict(composite_fwd=steps, composite_bwd=steps, scan_probe=1)
     for name in KERNELS:
         if launches.get(name, 0) != want[name]:
-            raise RuntimeError(f"{name} launched {launches.get(name, 0)} times in {steps} steps, "
+            raise RuntimeError(f"{tag}: {name} launched {launches.get(name, 0)} times in {steps} steps, "
                                f"not {want[name]}")
     losses = torch.stack([m["loss"] for _, m in records])
     if not bool(torch.isfinite(losses).all()):
-        raise RuntimeError("non-finite loss on the main path")
+        raise RuntimeError(f"non-finite loss on the {tag}")
     overflow = max(int(m["overflow"]) for _, m in records)
     if overflow:
-        raise RuntimeError(f"pair table overflowed by {overflow} on the main path")
+        raise RuntimeError(f"pair table overflowed by {overflow} on the {tag}")
     step_ms = np.array([ev["start"].elapsed_time(ev["end"]) for ev, _ in records])
-    order = ("start",) + phases + ("end",)
-    phase_ms = {
-        order[i + 1]: float(np.mean([ev[order[i]].elapsed_time(ev[order[i + 1]]) for ev, _ in records]))
-        for i in range(len(order) - 1)
-    }
-    log(f"  main path: {steps} steps, launches {json.dumps(launches)}")
+    # Each phase's mean over the steps that ran it (the relocation runs on
+    # every refine_every-th step only).
+    phase = {}
+    for ev, _ in records:
+        names = list(ev)
+        for a, b in zip(names, names[1:]):
+            phase.setdefault(b, []).append(ev[a].elapsed_time(ev[b]))
+    phase_ms = {k: float(np.mean(v)) for k, v in phase.items()}
+    log(f"  {tag}: {steps} steps, launches {json.dumps(launches)}")
     log(f"  step wall time (CUDA events, {timed} steps after {warm} warm-up): median "
         f"{np.median(step_ms):.3f} ms, min {step_ms.min():.3f}, max {step_ms.max():.3f}; "
         f"host clock {wall / timed * 1e3:.3f} ms/step = {timed / wall:.3f} steps/s")
-    log(f"  phases (mean ms; 'end' = after the stats): {json.dumps({k: round(v, 4) for k, v in phase_ms.items()})}")
+    log(f"  phases (mean ms over the steps that ran each; 'end' = after the last): "
+        f"{json.dumps({k: round(v, 4) for k, v in phase_ms.items()})} "
+        f"(runs: {json.dumps({k: len(v) for k, v in phase.items()})})")
     log(f"  loss {float(losses[0]):.6f} -> {float(losses[-1]):.6f}; pairs {int(records[-1][1]['pairs'])}, "
         f"overflow 0; peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     return launches, step_ms, phase_ms
+
+
+def mcmc_flagship(dev):
+    """Phase 3b: the flagship under the mcmc preset, a relocation every 10
+    steps; the alive count after each relocation must be the 5% tranche,
+    never above min(cap_max, capacity)."""
+    ctx = flagship_setup(dev, variant="mcmc")
+    _, step_ms, _ = main_path(ctx, tag="mcmc flagship")
+    profile_window(ctx, float(np.median(step_ms)))
+    s, cap = ctx["cfg"].strategy, ctx["cfg"].max_gaussians
+    rel = [(st, int(a), int(b)) for st, a, b in ctx["alive_after_relocation"]]
+    log(f"  relocations (step, alive before, after): {rel}; cap_max {s.cap_max}, capacity {cap}")
+    for st, a, b in rel:
+        want = min(s.cap_max, cap, int(np.float32(a) * np.float32(1.05)))
+        if b != want:
+            raise RuntimeError(f"relocation at step {st}: {a} -> {b} alive, not the 5% tranche {want}")
+    if sum(1 for st, _, _ in rel if st >= 4) != 2:
+        raise RuntimeError(f"expected 2 relocations in the timed steps, got {rel}")
+
+
+def aux_flagship(dev):
+    """Phase 3c: the flagship with pose, appearance and bilateral-grid
+    optimisation on."""
+    ctx = flagship_setup(dev, variant="aux")
+    _, step_ms, _ = main_path(ctx, tag="aux flagship")
+    profile_window(ctx, float(np.median(step_ms)))
 
 
 def profile_window(ctx, step_ms, nsteps=3):
@@ -886,6 +1097,88 @@ def runner_e2e(steps=300, width=648, height=420):
             raise RuntimeError("the Runner's refines did not grow the gaussians")
 
 
+# ------------------------------------------------------------------ phase 7
+
+
+def trainer_entry(steps=300, width=648, height=420):
+    """Phase 7: gs_init_tpu_torch.trainer.main on phase 5's scene, once per
+    preset, with checkpoints at the middle and the end, PLY export and
+    compression; then the eval-only restart from the last checkpoint and a
+    resumed step from the middle one."""
+    import torch
+    from gs_init_tpu_torch import kernels, trainer
+    from gs_init_tpu_torch.config import parse_cli
+    from gs_init_tpu_torch.datasets.synthetic import make_scene, write_colmap_scene
+    from gs_init_tpu_torch.engine.runner import Runner
+    from gs_init_tpu_torch.utils.compression import decompress_splats
+    from gs_init_tpu_torch.utils.ply import read_ply_splats
+
+    half = steps // 2
+    with tempfile.TemporaryDirectory() as tmp:
+        sc = make_scene(seed=0, n_gaussians=400, n_cams=12, width=width, height=height)
+        data_dir = write_colmap_scene(tmp, sc, n_points=300)
+        for preset, extra in (
+            ("default", ["--strategy.refine_start_iter=50", "--strategy.refine_every=100",
+                         "--strategy.reset_every=10000"]),
+            ("mcmc", ["--strategy.refine_start_iter=50", "--strategy.refine_every=50",
+                      "--strategy.cap_max=350"]),
+        ):
+            res = os.path.join(tmp, preset)
+            argv = [preset, f"--data_dir={data_dir}", "--data_factor=1", f"--result_dir={res}",
+                    f"--max_steps={steps}", f"--eval_steps=[{steps}]", f"--save_steps=[{half},{steps}]",
+                    f"--ply_steps=[{steps}]", "--save_ply", "--compression=quantized", "--test_every=4",
+                    "--max_gaussians=4096", "--pair_capacity=262144", "--sh_degree_interval=100",
+                    "--tb_every=100"] + extra
+            t0 = time.perf_counter()
+            psnr0 = Runner(parse_cli(argv, trainer.build_presets())).eval(0)["psnr"]
+            kernels.reset_launch_counts()
+            t1 = time.perf_counter()
+            runner = trainer.main(argv)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            launches = {k: kernels.LAUNCHES[k] for k in ("composite_fwd", "composite_bwd")}
+            with open(os.path.join(res, "stats", f"val_step{steps}.json")) as f:
+                psnr1 = json.load(f)["psnr"]
+            n1 = int(runner.gstate.alive.sum())
+            ply_means = read_ply_splats(os.path.join(res, f"splats_{steps}.ply"))[0]
+            comp_means = decompress_splats(os.path.join(res, f"compressed_{steps}.npz"))[0]
+            ckpt = os.path.join(res, "ckpts", f"ckpt_{steps}.npz")
+            restart = trainer.main([preset, f"--data_dir={data_dir}", "--data_factor=1",
+                                    f"--result_dir={res}_restart", "--test_every=4", "--max_gaussians=4096",
+                                    "--pair_capacity=262144", f"--ckpt=[{ckpt}]"])
+            t3 = time.perf_counter()
+            with open(os.path.join(f"{res}_restart", "stats", f"val_step{steps}.json")) as f:
+                psnr_re = json.load(f)["psnr"]
+            frames = sorted(x for x in os.listdir(os.path.join(f"{res}_restart", "renders"))
+                            if x.startswith(f"traj_{steps}_"))
+            resumed = Runner(parse_cli(argv, trainer.build_presets()))
+            at = resumed.load(os.path.join(res, "ckpts", f"ckpt_{half}.npz"))
+            m = resumed.train_iteration(at + 1)
+            finite = all(bool(torch.isfinite(v).all()) for v in m.values())
+            log(f"  trainer {preset}: {steps} steps in {t2 - t1:.3f} s ({steps / (t2 - t1):.3f} steps/s, one "
+                f"npz per save step and the PLY, compression and eval inside), set-up and initial eval "
+                f"{t1 - t0:.3f} s; eval PSNR {psnr0:.4f} -> {psnr1:.4f}; alive {n1} "
+                f"(cap_max {runner.cfg.strategy.cap_max if preset == 'mcmc' else '-'}); launches in main() "
+                f"{json.dumps(launches)}; PLY {len(ply_means)} and compressed {len(comp_means)} splats; "
+                f"eval-only restart PSNR {psnr_re:.6f} (|diff| {abs(psnr_re - psnr1):.2e}), "
+                f"{len(frames)} trajectory frames, {t3 - t2:.3f} s; resumed step {at + 1} from ckpt_{half}: "
+                f"loss {float(m['loss']):.5f}, finite {finite}")
+            if not psnr1 > psnr0:
+                raise RuntimeError(f"trainer {preset}: eval PSNR did not rise over training")
+            if preset == "mcmc" and n1 > runner.cfg.strategy.cap_max:
+                raise RuntimeError(f"trainer mcmc: {n1} alive above cap_max")
+            if len(ply_means) != n1 or len(comp_means) != n1:
+                raise RuntimeError(f"trainer {preset}: the PLY or compressed export lost splats")
+            if abs(psnr_re - psnr1) > 1e-6 or not frames:
+                raise RuntimeError(f"trainer {preset}: the eval-only restart did not reproduce the run")
+            if not finite or at != half:
+                raise RuntimeError(f"trainer {preset}: resuming from ckpt_{half} failed")
+            want = dict(composite_fwd=steps + len(runner.valset), composite_bwd=steps)
+            if launches != want:
+                raise RuntimeError(f"trainer {preset}: launches {launches}, not {want}")
+            del restart, resumed, runner
+
+
 # ------------------------------------------------------------------ phase 6
 
 
@@ -969,7 +1262,8 @@ def mdi_init_full_width(dev, width=1296, height=840, n_cams=24):
 
 
 def three_arms(dev, steps=800, width=648, height=420, n_cams=12):
-    """Phase 6b: E2E_QUALITY.json's scenario through the port's Runner."""
+    """Phase 6b: E2E_QUALITY.json's scenario through the port's Runner; then
+    the sfm arm again with the batch prefetch thread off, for its rate."""
     import torch
     from gs_init_tpu_torch import kernels
     from gs_init_tpu_torch.config import Config
@@ -979,11 +1273,13 @@ def three_arms(dev, steps=800, width=648, height=420, n_cams=12):
     res = {}
     with tempfile.TemporaryDirectory() as tmp:
         scene, data_dir = clustered_colmap(tmp, width, height, n_cams, dev)
-        for arm in ("sfm", "monocular_depth", "sfm+mdi"):
+        for arm, prefetch in (("sfm", 2), ("monocular_depth", 2), ("sfm+mdi", 2), ("sfm", 0)):
+            label = arm if prefetch else f"{arm}, no prefetch"
             init_type = "sfm" if arm == "sfm" else "monocular_depth"
             # scripts/e2e_quality.py run()'s settings.
             cfg = Config(
-                data_dir=data_dir, data_factor=1, result_dir=os.path.join(tmp, arm.replace("+", "_")),
+                data_dir=data_dir, data_factor=1, data_prefetch=prefetch,
+                result_dir=os.path.join(tmp, label.replace("+", "_").replace(", ", "_").replace(" ", "_")),
                 max_steps=steps, test_every=8, sh_degree=2, max_gaussians=131072,
                 init_type=init_type, batch_size=1, eval_steps=[], save_steps=[steps], tb_every=200,
             )
@@ -1013,16 +1309,17 @@ def three_arms(dev, steps=800, width=648, height=420, n_cams=12):
             stats = runner.eval(steps)
             n_val = len(runner.valset)
             want = dict(composite_fwd=steps + n_val, composite_bwd=steps)
-            log(f"  arm {arm}: init {t1 - t0:.3f} s ({n0} gaussians), {steps} steps in {t2 - t1:.3f} s "
+            log(f"  arm {label}: init {t1 - t0:.3f} s ({n0} gaussians), {steps} steps in {t2 - t1:.3f} s "
                 f"({steps / (t2 - t1):.3f} steps/s), {stats['num_GS']} gaussians at the end; eval PSNR "
                 f"{stats['psnr']:.4f}, SSIM {stats['ssim']:.4f}; launches in train() "
                 f"{json.dumps({k: launches[k] for k in want})} (want {json.dumps(want)}: one per step, "
                 f"and the forward once per view of train()'s final eval)")
             if any(launches[k] != v for k, v in want.items()):
-                raise RuntimeError(f"arm {arm}: the compositor did not launch once per train step")
+                raise RuntimeError(f"arm {label}: the compositor did not launch once per train step")
             if not np.isfinite(stats["psnr"]):
-                raise RuntimeError(f"arm {arm}: non-finite eval PSNR")
-            res[arm] = stats
+                raise RuntimeError(f"arm {label}: non-finite eval PSNR")
+            if prefetch:
+                res[arm] = stats
     psnr = {k: round(v["psnr"], 4) for k, v in res.items()}
     log(f"  three arms, eval PSNR: {json.dumps(psnr)}")
     if not (res["monocular_depth"]["psnr"] > res["sfm"]["psnr"] and res["sfm+mdi"]["psnr"] > res["sfm"]["psnr"]):
@@ -1060,6 +1357,9 @@ def main():
     check_kernels("deep stack, tile 8", *compositor_case(dev, "deep", tile=8))
     scan_err = check_scan_kernel(dev)
     step_card_vs_cpu(dev)
+    step_card_vs_cpu(dev, aux_groups=True)
+    mcmc_card_vs_cpu(dev)
+    color_correct_card_vs_cpu(dev)
     oracle_vs_compositor(dev)
     points_from_depth_card_vs_cpu(dev)
 
@@ -1073,14 +1373,22 @@ def main():
     launch_floor(dev)
     del ctx
     torch.cuda.empty_cache()
+    log("phase 3b: the flagship under the mcmc preset")
+    mcmc_flagship(dev)
+    torch.cuda.empty_cache()
+    log("phase 3c: the flagship with pose, appearance and bilateral-grid optimisation")
+    aux_flagship(dev)
+    torch.cuda.empty_cache()
 
     log("phase 5: the Runner end to end")
     runner_e2e()
 
     log("phase 6a: monocular-depth init at full width")
     mdi_init_full_width(dev)
-    log("phase 6b: the three arms, sfm, monocular_depth and sfm+mdi")
+    log("phase 6b: the three arms, sfm, monocular_depth and sfm+mdi; sfm without prefetch")
     three_arms(dev)
+    log("phase 7: the trainer entry point, both presets, checkpoints and the eval-only restart")
+    trainer_entry()
 
     log(f"total {time.perf_counter() - t_start:.3f} s")
     log(card)

@@ -3,9 +3,12 @@
 ``Config``, ``DefaultStrategyConfig`` and the monocular-depth-init
 dataclasses (``MonocularDepthInitConfig`` and the ones it nests) keep the
 JAX package's field names and defaults so a configuration carries over.
-The port runs the default training path from SfM, random or
-monocular-depth init with the stub predictor; ``check_slice`` raises on
-settings that select code not yet ported, naming the slice that brings it.
+``MCMCStrategyConfig`` too. The port runs both strategies from SfM, random
+or monocular-depth init with the stub predictor, with pose / appearance /
+bilateral-grid optimisation, patch crops, checkpoints, PLY export,
+compression and the profiler window. ``check_slice`` raises on what is not
+ported yet (the live viewer, multi-device training, the depth networks, SAM
+and the init-cloud export), naming the slice that brings it.
 
 TPU-only knobs are accepted and have no effect here: the port always uses
 the f32 16-column pair table and f32 gradient sums (``wire8``,
@@ -38,6 +41,20 @@ class DefaultStrategyConfig:
     pause_refine_after_reset: int = 0
     absgrad: bool = False
     revised_opacity: bool = False
+    verbose: bool = False
+
+
+@dataclass(eq=False)
+class MCMCStrategyConfig:
+    """MCMC relocation densification (stochastic gaussian langevin moves)."""
+
+    name: Literal["mcmc"] = "mcmc"
+    cap_max: int = 1_000_000
+    noise_lr: float = 5e5
+    refine_start_iter: int = 500
+    refine_stop_iter: int = 25_000
+    refine_every: int = 100
+    min_opacity: float = 0.005
     verbose: bool = False
 
 
@@ -169,7 +186,7 @@ class Config:
     global_scale: float = 1.0
     normalize_world_space: bool = True
     camera_model: Literal["pinhole", "ortho", "fisheye"] = "pinhole"
-    data_prefetch: int = 2  # the port's Runner loads batches synchronously
+    data_prefetch: int = 2  # batches built this far ahead on a thread (0: in the loop)
     image_cache_gb: float = 2.0
 
     # Init
@@ -212,8 +229,8 @@ class Config:
     # Rasterizer
     tile_size: int = 32
     pair_capacity: int = 4_194_304
-    # Grow pair_capacity when pairs overflow it (the port's Runner grows;
-    # the JAX Runner also shrinks, which recompiles there).
+    # Retune pair_capacity from observed pair counts: grow on overflow,
+    # shrink when it is far too large (the eager step reads it per call).
     auto_pair_capacity: bool = True
     chunk_size: int = 128
     reorder_table: bool = False
@@ -271,6 +288,30 @@ class Config:
     data_parallel: int = 1
     gaussian_shards: int = 1
 
+    def adjust_steps(self, factor: Optional[float] = None) -> None:
+        """Scale every step schedule by ``steps_scaler`` (or ``factor``),
+        the strategy's refine schedule included."""
+        f = self.steps_scaler if factor is None else factor
+        if f == 1.0:
+            return
+        self.eval_steps = [int(s * f) for s in self.eval_steps]
+        self.save_steps = [int(s * f) for s in self.save_steps]
+        self.ply_steps = [int(s * f) for s in self.ply_steps]
+        self.max_steps = int(self.max_steps * f)
+        self.sh_degree_interval = int(self.sh_degree_interval * f)
+        s = self.strategy
+        if isinstance(s, DefaultStrategyConfig):
+            s.refine_start_iter = int(s.refine_start_iter * f)
+            s.refine_stop_iter = int(s.refine_stop_iter * f)
+            s.reset_every = int(s.reset_every * f)
+            s.refine_every = int(s.refine_every * f)
+        elif isinstance(s, MCMCStrategyConfig):
+            s.refine_start_iter = int(s.refine_start_iter * f)
+            s.refine_stop_iter = int(s.refine_stop_iter * f)
+            s.refine_every = int(s.refine_every * f)
+        else:
+            raise ValueError(f"unknown strategy {s!r}")
+
 
 # Monocular-depth-init settings not ported yet: (condition on cfg.mdi,
 # what it selects, the ROADMAP queue entry that ports it).
@@ -285,16 +326,7 @@ _LATER_MDI = (
 
 # (condition, what it selects, the ROADMAP queue entry that ports it)
 _LATER = (
-    (lambda c: not isinstance(c.strategy, DefaultStrategyConfig), "the MCMC strategy", "the MCMC/aux slice"),
-    (lambda c: c.pose_opt or c.pose_noise > 0, "pose optimization", "the MCMC/aux slice"),
-    (lambda c: c.app_opt, "appearance optimization", "the MCMC/aux slice"),
-    (lambda c: c.use_bilateral_grid, "the bilateral grid", "the MCMC/aux slice"),
-    (lambda c: c.patch_size, "random patch crops", "the eval/integration slice"),
-    (lambda c: c.ckpt, "checkpoint loading", "the checkpoint slice"),
-    (lambda c: c.save_ply, "PLY export", "the eval/integration slice"),
-    (lambda c: c.compression is not None, "splat compression", "the eval/integration slice"),
     (lambda c: not c.disable_viewer, "the live viewer", "the eval/integration slice"),
-    (lambda c: c.profile_start >= 0, "profiler capture", "the eval/integration slice"),
     (
         lambda c: c.data_parallel > 1 or c.gaussian_shards > 1 or c.shard_pixels
         or c.mesh not in ("auto", "off", "1x1"),

@@ -10,6 +10,7 @@ else by the minimal PNG decoder in ``png.py``.
 from __future__ import annotations
 
 import os
+import threading
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
@@ -169,45 +170,91 @@ def _camera_matrix(cam):
 
 
 class Dataset:
-    """Index-based dataset over a Parser split; images decoded on first use
-    (undistorted when the camera model has distortion) and kept in memory."""
+    """Index-based dataset over a Parser split. Images are decoded on first
+    use (undistorted when the camera model has distortion) and kept as
+    uint8 within a byte budget (``cache_bytes``, 0 for none); ``patch_size``
+    crops a random square with the principal-point shift, at offsets drawn
+    from ``rng`` (a numpy RandomState; numpy's global one when None, as the
+    JAX package draws them)."""
 
-    def __init__(self, parser: Parser, split: str = "train", load_depths: bool = False):
+    def __init__(
+        self,
+        parser: Parser,
+        split: str = "train",
+        patch_size: Optional[int] = None,
+        load_depths: bool = False,
+        cache_bytes: int = 0,
+        rng: Optional[np.random.RandomState] = None,
+    ):
         self.parser = parser
         self.indices = parser.split_indices(split)
+        self.patch_size = patch_size
         self.load_depths = load_depths
-        self._cache: Dict[int, tuple] = {}
+        self._rng = rng if rng is not None else np.random
+        # The prefetch thread and the train loop both read the cache.
+        self._cache_budget = int(cache_bytes)
+        self._cache_used = 0
+        self._img_cache: Dict[int, tuple] = {}
+        self._cache_lock = threading.Lock()
 
     def __len__(self) -> int:
         return len(self.indices)
 
-    def _load(self, i: int, pim: ParsedImage):
-        if i not in self._cache:
-            img = _imread(pim.path).astype(np.float32) / 255.0
-            K = pim.K
-            dist = self.parser._dist
-            if dist is not None and np.any(dist):
-                import cv2
+    def _undistort(self, img: np.ndarray, pim: ParsedImage):
+        dist = self.parser._dist
+        if dist is None or not np.any(dist):
+            return img, pim.K
+        import cv2
 
-                if self.parser._model == "fisheye":
-                    K = cv2.fisheye.estimateNewCameraMatrixForUndistortRectify(
-                        pim.K, dist, (pim.width, pim.height), np.eye(3), balance=0.0
-                    )
-                    m1, m2 = cv2.fisheye.initUndistortRectifyMap(
-                        pim.K, dist, np.eye(3), K, (pim.width, pim.height), cv2.CV_32FC1
-                    )
-                else:
-                    K, _ = cv2.getOptimalNewCameraMatrix(pim.K, dist, (pim.width, pim.height), 0)
-                    m1, m2 = cv2.initUndistortRectifyMap(
-                        pim.K, dist, None, K, (pim.width, pim.height), cv2.CV_32FC1
-                    )
-                img = cv2.remap(img, m1, m2, cv2.INTER_LINEAR)
-            self._cache[i] = (img, K)
-        return self._cache[i]
+        if self.parser._model == "fisheye":
+            K = cv2.fisheye.estimateNewCameraMatrixForUndistortRectify(
+                pim.K, dist, (pim.width, pim.height), np.eye(3), balance=0.0
+            )
+            m1, m2 = cv2.fisheye.initUndistortRectifyMap(
+                pim.K, dist, np.eye(3), K, (pim.width, pim.height), cv2.CV_32FC1
+            )
+        else:
+            K, _ = cv2.getOptimalNewCameraMatrix(pim.K, dist, (pim.width, pim.height), 0)
+            m1, m2 = cv2.initUndistortRectifyMap(
+                pim.K, dist, None, K, (pim.width, pim.height), cv2.CV_32FC1
+            )
+        return cv2.remap(img, m1, m2, cv2.INTER_LINEAR), K
+
+    def _load(self, i: int, pim: ParsedImage):
+        """(float32 image in [0, 1], K) after undistortion; cached as uint8."""
+        with self._cache_lock:
+            hit = self._img_cache.get(i)
+        if hit is not None:
+            img8, K = hit
+            return img8.astype(np.float32) / 255.0, K
+        img = _imread(pim.path).astype(np.float32) / 255.0
+        img, K = self._undistort(img, pim)
+        if self._cache_budget > 0:
+            img8 = np.clip(img * 255.0 + 0.5, 0, 255).astype(np.uint8)
+            with self._cache_lock:
+                if i not in self._img_cache and self._cache_used + img8.nbytes <= self._cache_budget:
+                    self._img_cache[i] = (img8, K)
+                    self._cache_used += img8.nbytes
+        return img, K
 
     def __getitem__(self, i: int) -> dict:
         pim = self.parser.images[int(self.indices[i])]
         img, K = self._load(i, pim)
+        if self.patch_size:
+            # Every item must have the same crop size (batches stack), so an
+            # image smaller than the patch is a configuration error.
+            p = self.patch_size
+            if img.shape[0] < p or img.shape[1] < p:
+                raise ValueError(
+                    f"patch_size={p} exceeds image {pim.name} "
+                    f"({img.shape[1]}x{img.shape[0]}); lower patch_size or data_factor"
+                )
+            y0 = self._rng.randint(0, img.shape[0] - p + 1)
+            x0 = self._rng.randint(0, img.shape[1] - p + 1)
+            img = img[y0 : y0 + p, x0 : x0 + p]
+            K = np.array(K, copy=True)
+            K[0, 2] -= x0
+            K[1, 2] -= y0
         out = dict(
             K=np.asarray(K, np.float32),
             camtoworld=pim.camtoworld.astype(np.float32),

@@ -6,12 +6,16 @@ eps / sqrt(BS); the means learning rate is scaled by the scene scale and
 decays by gamma = 0.01 ** (1 / max_steps) per step. Moments are plain
 buffers so densification can zero the moments of relocated slots. The
 update runs in place on the parameter and moment buffers.
+
+``simple_adam_*`` is the AdamW-style update of the auxiliary groups (pose
+deltas, appearance embeddings and MLP, bilateral grids): one learning rate
+over a tensor or a dataclass of tensors, weight decay added to the gradient.
 """
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
-from typing import Dict
+from dataclasses import dataclass, fields, is_dataclass, replace
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -24,6 +28,64 @@ class AdamState:
     mu: GaussianParams
     nu: GaussianParams
     count: int
+
+
+@dataclass
+class SimpleAdamState:
+    """Adam state of an auxiliary group: moments shaped like its params."""
+
+    mu: object
+    nu: object
+    count: int
+
+
+def tensor_leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a tensor or a dataclass of tensors, in field order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if is_dataclass(tree):
+        return [getattr(tree, f.name) for f in fields(tree)]
+    raise TypeError(f"expected a tensor or a dataclass of tensors, got {type(tree).__name__}")
+
+
+def tree_map(fn, tree):
+    """``fn`` over a tensor or each field of a dataclass of tensors."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    return replace(tree, **{f.name: fn(getattr(tree, f.name)) for f in fields(tree)})
+
+
+def simple_adam_init(params) -> SimpleAdamState:
+    return SimpleAdamState(
+        mu=tree_map(torch.zeros_like, params), nu=tree_map(torch.zeros_like, params), count=0
+    )
+
+
+@torch.no_grad()
+def simple_adam_update(
+    params,
+    grads,
+    state: SimpleAdamState,
+    lr: float,
+    b1: float = 0.9,
+    b2: float = 0.999,
+    eps: float = 1e-8,
+    weight_decay: float = 0.0,
+) -> SimpleAdamState:
+    """AdamW-style step in place on ``params`` and the moments; returns the
+    state with its count advanced. f32 arithmetic as the JAX update:
+    g += wd * p; p -= lr * (m / bc1) / (sqrt(v / bc2) + eps)."""
+    count = state.count + 1
+    bc1 = float(1.0 - np.float32(b1) ** np.float32(count))
+    bc2 = float(1.0 - np.float32(b2) ** np.float32(count))
+    lr = float(np.float32(lr))
+    for p, g, m, v in zip(*(tensor_leaves(x) for x in (params, grads, state.mu, state.nu))):
+        if weight_decay:
+            g = g + weight_decay * p
+        m.mul_(b1).add_(g * (1 - b1))
+        v.mul_(b2).add_(g * (1 - b2) * g)
+        p.sub_(lr * (m / bc1) / (torch.sqrt(v / bc2) + eps))
+    return SimpleAdamState(mu=state.mu, nu=state.nu, count=count)
 
 
 @dataclass(frozen=True)

@@ -6,20 +6,22 @@ data between slots and flips mask bits, so shapes never change and dead
 slots are culled in projection. PyTorch updates these buffers in place
 (Adam, refine) where the JAX package rebuilt them.
 
-``state_from_numpy`` / ``adam_from_numpy`` / ``strategy_from_numpy`` carry
-a state across from numpy arrays (for example the leaves of the JAX
-package's NamedTuples), so both packages can be run from identical state.
+``state_from_numpy`` / ``adam_from_numpy`` / ``strategy_from_numpy`` /
+``aux_from_numpy`` carry a state across from numpy arrays (for example the
+leaves of the JAX package's NamedTuples), so both packages can be run from
+identical state.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, fields
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..ops.knn import mean_knn_dist
+from .appearance import AppearanceParams
 from ..ops.sh import num_sh_bases
 
 SH0_C = 0.28209479177387814
@@ -171,4 +173,48 @@ def state_from_numpy(params: Dict[str, np.ndarray], alive: np.ndarray, device) -
     """GaussianState from numpy leaves (e.g. the JAX GaussianState's)."""
     return GaussianState(
         params=params_from_numpy(params, device), alive=_t(alive, device).bool()
+    )
+
+
+@dataclass
+class AuxParams:
+    """Optional per-image / appearance parameter groups (None = disabled)."""
+
+    pose: Optional[torch.Tensor] = None  # [n_images, 9]
+    app: Optional[AppearanceParams] = None
+    grids: Optional[torch.Tensor] = None  # [n_images, L, H, W, 12]
+
+
+def aux_leaves(aux: AuxParams) -> List[torch.Tensor]:
+    """The aux tensors in the order of the JAX package's
+    ``tree_flatten(AuxParams)``: pose, the AppearanceParams fields, grids;
+    disabled groups have none."""
+    out = [] if aux.pose is None else [aux.pose]
+    if aux.app is not None:
+        out += [getattr(aux.app, f.name) for f in fields(aux.app)]
+    return out + ([] if aux.grids is None else [aux.grids])
+
+
+def aux_from_leaves(like: AuxParams, leaves: List[torch.Tensor]) -> AuxParams:
+    """An AuxParams with ``like``'s enabled groups, filled from ``leaves``
+    in ``aux_leaves`` order."""
+    it = iter(leaves)
+    pose = None if like.pose is None else next(it)
+    app = None
+    if like.app is not None:
+        app = AppearanceParams(**{f.name: next(it) for f in fields(AppearanceParams)})
+    grids = None if like.grids is None else next(it)
+    return AuxParams(pose=pose, app=app, grids=grids)
+
+
+def aux_from_numpy(pose, app: Optional[Dict[str, np.ndarray]], grids, device) -> AuxParams:
+    """AuxParams from numpy arrays (e.g. the JAX AuxParams' leaves); ``app``
+    is keyed by AppearanceParams field; None leaves a group disabled."""
+    f = lambda x: None if x is None else _t(x, device).float()
+    return AuxParams(
+        pose=f(pose),
+        app=None if app is None else AppearanceParams(
+            **{k.name: f(app[k.name]) for k in fields(AppearanceParams)}
+        ),
+        grids=f(grids),
     )

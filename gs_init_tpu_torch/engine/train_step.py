@@ -1,32 +1,46 @@
-"""One training step — port of ``gs_init_tpu/engine/train_step.py`` for the
-default path.
+"""One training step — port of ``gs_init_tpu/engine/train_step.py``.
 
 Forward (projection, SH colours, binning, tile compositor), loss
 (1 - lambda) L1 + lambda (1 - SSIM) plus the optional sparse disparity loss
 and opacity / scale regularisers, backward through the compositor's CUDA
 kernel, Adam in place, and the densification statistics from the
-``means2d_dummy`` gradients (or the absgrad tap). PyTorch runs eagerly, so
-``make_train_step`` only closes over the configuration; the step reads
-``cfg.pair_capacity`` on every call, which lets the Runner grow it. The
-step's first call on a CUDA device runs the scan probe kernel once
-(``ops.rasterize.check_scan``), where the JAX step resolves ``_scan_mode``.
+``means2d_dummy`` gradients (or the absgrad tap; the MCMC strategy reads
+none, so it keeps none). PyTorch runs eagerly, so ``make_train_step`` only
+closes over the configuration; the step reads ``cfg.pair_capacity`` on
+every call, which lets the Runner retune it. The step's first call on a
+CUDA device runs the scan probe kernel once (``ops.rasterize.check_scan``),
+where the JAX step resolves ``_scan_mode``.
 
-Pose optimisation, appearance embeddings and the bilateral grid raise
-NotImplementedError (a later slice of the port).
+Optional groups, each one more optimiser group (``AuxParams``):
+- pose optimisation (``cfg.pose_opt``): per-image SE3 deltas on camtoworld;
+- appearance optimisation (``cfg.app_opt``): embedding + feature MLP colours
+  in place of SH (sh0 is the base colour logit);
+- the bilateral grid (``cfg.use_bilateral_grid``): per-view colour affines
+  on the render and a TV loss.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
+from ..config import MCMCStrategyConfig
 from ..ops.rasterize import check_scan
 from ..ops.render import rasterize
 from ..ops.sh import num_sh_bases
 from ..ops.ssim import ssim
-from .optim import AdamConfig, AdamState, adam_update
-from .params import PARAM_NAMES, GaussianParams, GaussianState
+from .appearance import appearance_colors, apply_pose_deltas, slice_bilateral_grid, total_variation_loss
+from .optim import (
+    AdamConfig,
+    AdamState,
+    SimpleAdamState,
+    adam_update,
+    simple_adam_init,
+    simple_adam_update,
+)
+from .params import PARAM_NAMES, AuxParams, GaussianParams, GaussianState, aux_from_leaves, aux_leaves
 from .strategy import default as default_strategy
 
 
@@ -41,6 +55,18 @@ class Batch:
     sampling_mask: Optional[torch.Tensor] = None  # [B, H, W, 1] float
 
 
+@dataclass
+class AuxOptState:
+    pose: Optional[SimpleAdamState] = None
+    app: Optional[SimpleAdamState] = None
+    grids: Optional[SimpleAdamState] = None
+
+
+def init_aux_opt(aux: AuxParams) -> AuxOptState:
+    init = lambda x: None if x is None else simple_adam_init(x)
+    return AuxOptState(pose=init(aux.pose), app=init(aux.app), grids=init(aux.grids))
+
+
 def sh_coeff_mask(step: int, sh_degree: int, interval: int, device=None) -> torch.Tensor:
     """[K-1] mask of active shN coefficients (+1 degree per interval)."""
     n_active = (min(step // interval, sh_degree) + 1) ** 2
@@ -49,20 +75,19 @@ def sh_coeff_mask(step: int, sh_degree: int, interval: int, device=None) -> torc
 
 
 def make_train_step(cfg, acfg: AdamConfig, width: int, height: int):
-    """Build ``train_step(gstate, adam, sstate, batch, step, bkgd=None,
-    mark=None) -> (gstate, adam, sstate, metrics)``.
+    """Build ``train_step(gstate, adam, sstate, aux, aux_opt, batch, step,
+    bkgd=None, mark=None) -> (gstate, adam, sstate, aux, aux_opt, metrics)``.
 
-    ``bkgd`` [B, 3] is the random background when ``cfg.random_bkgd`` (the
-    caller draws it). ``mark(name)``, when given, is called at each phase
-    boundary (``chip_smoke.py`` records CUDA events there). The gaussian
-    buffers, Adam moments and strategy statistics update in place. Metrics
-    stay on the device (no host sync)."""
-    if cfg.pose_opt or cfg.app_opt or cfg.use_bilateral_grid:
-        raise NotImplementedError(
-            "pose / appearance / bilateral-grid optimisation is not ported to "
-            "gs_init_tpu_torch yet (the MCMC/aux slice in ROADMAP.md)"
-        )
+    ``aux`` holds the enabled optional groups (``AuxParams()`` for none) and
+    ``aux_opt`` their Adam states (``init_aux_opt(aux)``). ``bkgd`` [B, 3]
+    is the random background when ``cfg.random_bkgd`` (the caller draws
+    it). ``mark(name)``, when given, is called at each phase boundary
+    (``chip_smoke.py`` records CUDA events there). The gaussian buffers,
+    the aux groups, their Adam moments and the strategy statistics update in
+    place. Metrics stay on the device (no host sync)."""
     use_absgrad = bool(getattr(cfg.strategy, "absgrad", False))
+    # MCMC relocation reads no screen-space statistics, so none are kept.
+    track_stats = not isinstance(cfg.strategy, MCMCStrategyConfig)
     rasterize_kw = dict(
         near_plane=cfg.near_plane,
         far_plane=cfg.far_plane,
@@ -79,6 +104,8 @@ def make_train_step(cfg, acfg: AdamConfig, width: int, height: int):
         gstate: GaussianState,
         adam: AdamState,
         sstate,
+        aux: AuxParams,
+        aux_opt: AuxOptState,
         batch: Batch,
         step: int,
         bkgd: Optional[torch.Tensor] = None,
@@ -97,6 +124,8 @@ def make_train_step(cfg, acfg: AdamConfig, width: int, height: int):
         c = batch.pixels.shape[0]
         leaves = {k: v.detach().requires_grad_(True) for k, v in p.items()}
         lp = GaussianParams(**leaves)
+        aux_in = [x.detach().requires_grad_(True) for x in aux_leaves(aux)]
+        la = aux_from_leaves(aux, aux_in)
         dummy = torch.zeros((c, p.capacity, 2), device=dev, requires_grad=True)
         pair_dummy = (
             torch.zeros((c * p.capacity, 2), device=dev, requires_grad=True)
@@ -105,7 +134,10 @@ def make_train_step(cfg, acfg: AdamConfig, width: int, height: int):
         )
 
         scales, opacities = lp.activated()
-        viewmats = torch.linalg.inv(batch.camtoworlds)
+        c2w = batch.camtoworlds
+        if cfg.pose_opt and la.pose is not None:
+            c2w = apply_pose_deltas(c2w, la.pose, batch.image_ids)
+        viewmats = torch.linalg.inv(c2w)
         if cfg.random_bkgd:
             if bkgd is None:
                 raise ValueError("cfg.random_bkgd needs the random background bkgd [B, 3]")
@@ -114,17 +146,26 @@ def make_train_step(cfg, acfg: AdamConfig, width: int, height: int):
             bkgd = bkgd[None].repeat(c, 1)
         else:
             bkgd = None
-        sh_mask = torch.cat(
-            [
-                torch.ones((1,), device=dev),
-                sh_coeff_mask(step, cfg.sh_degree, cfg.sh_degree_interval, dev),
-            ]
-        )
+        if cfg.app_opt and la.app is not None:
+            dirs = lp.means[None, :, :] - c2w[:, None, :3, 3]
+            active_deg = min(step // cfg.sh_degree_interval, cfg.sh_degree)
+            resid = appearance_colors(la.app, batch.image_ids, dirs, active_deg, cfg.sh_degree)
+            colors = torch.sigmoid(resid + lp.sh0[None, :, 0, :])
+            sh_degree, sh_mask = None, None
+        else:
+            colors = lp.sh_coeffs()
+            sh_degree = cfg.sh_degree
+            sh_mask = torch.cat(
+                [
+                    torch.ones((1,), device=dev),
+                    sh_coeff_mask(step, cfg.sh_degree, cfg.sh_degree_interval, dev),
+                ]
+            )
         mark("setup")
         render, alpha, info = rasterize(
-            lp.means, lp.quats, scales, opacities, lp.sh_coeffs(), viewmats,
+            lp.means, lp.quats, scales, opacities, colors, viewmats,
             batch.Ks, width, height,
-            sh_degree=cfg.sh_degree, sh_mask=sh_mask, backgrounds=bkgd,
+            sh_degree=sh_degree, sh_mask=sh_mask, backgrounds=bkgd,
             alive=alive, means2d_dummy=dummy, pair_dummy=pair_dummy,
             pair_capacity=cfg.pair_capacity, **rasterize_kw,
         )
@@ -135,6 +176,8 @@ def make_train_step(cfg, acfg: AdamConfig, width: int, height: int):
             m = batch.sampling_mask.to(rendered.dtype)
             rendered = rendered * m + rendered.detach() * (1 - m)
             alpha = alpha * m + alpha.detach() * (1 - m)
+        if cfg.use_bilateral_grid and la.grids is not None:
+            rendered = slice_bilateral_grid(la.grids, rendered, batch.image_ids)
         pixels = batch.pixels
         l1 = torch.mean(torch.abs(rendered - pixels))
         ssim_val = ssim(rendered, pixels)
@@ -149,6 +192,8 @@ def make_train_step(cfg, acfg: AdamConfig, width: int, height: int):
             disp_gt = torch.where(valid, 1.0 / torch.clamp(batch.depth_values, min=1e-6), 0.0)
             nvalid = torch.clamp(valid.sum(), min=1)
             loss = loss + cfg.depth_lambda * (torch.abs(disp - disp_gt).sum() / nvalid)
+        if cfg.use_bilateral_grid and la.grids is not None:
+            loss = loss + cfg.tv_lambda * total_variation_loss(la.grids)
         if cfg.opacity_reg > 0.0:
             loss = loss + cfg.opacity_reg * torch.mean(
                 torch.where(alive, torch.abs(opacities), 0.0)
@@ -164,14 +209,31 @@ def make_train_step(cfg, acfg: AdamConfig, width: int, height: int):
         # fall back to the screen-space gradients, as in the JAX package.
         absgrad = pair_dummy is not None and info.binning is not None
         inputs = [leaves[k] for k in PARAM_NAMES] + [dummy] + ([pair_dummy] if absgrad else [])
-        grads = torch.autograd.grad(loss, inputs)
+        # shN has no gradient when the appearance MLP replaces SH colours.
+        grads = torch.autograd.grad(loss, inputs + aux_in, allow_unused=True)
+        grads = [torch.zeros_like(x) if g is None else g for x, g in zip(inputs + aux_in, grads)]
         mark("backward")
         adam = adam_update(
             p, GaussianParams(**dict(zip(PARAM_NAMES, grads[:6]))), adam, acfg, step
         )
         mark("adam")
-        stats_grads = grads[7].reshape(c, -1, 2) if absgrad else grads[6]
-        sstate = default_strategy.update_state(sstate, stats_grads, info.radii, width, height)
+        agrads = aux_from_leaves(aux, grads[len(inputs):])
+        decay = np.float32(acfg.means_decay_gamma) ** np.float32(step)
+        if aux.pose is not None:
+            aux_opt.pose = simple_adam_update(
+                aux.pose, agrads.pose, aux_opt.pose,
+                lr=np.float32(cfg.pose_opt_lr) * decay, weight_decay=cfg.pose_opt_reg,
+            )
+        if aux.app is not None:
+            aux_opt.app = simple_adam_update(
+                aux.app, agrads.app, aux_opt.app, lr=cfg.app_opt_lr, weight_decay=cfg.app_opt_reg
+            )
+        if aux.grids is not None:
+            aux_opt.grids = simple_adam_update(aux.grids, agrads.grids, aux_opt.grids, lr=2e-3)
+        mark("aux")
+        if track_stats:
+            stats_grads = grads[7].reshape(c, -1, 2) if absgrad else grads[6]
+            sstate = default_strategy.update_state(sstate, stats_grads, info.radii, width, height)
         mark("stats")
         metrics = dict(
             loss=loss.detach(),
@@ -184,6 +246,6 @@ def make_train_step(cfg, acfg: AdamConfig, width: int, height: int):
                 else torch.zeros((), dtype=torch.int32, device=dev)
             ),
         )
-        return gstate, adam, sstate, metrics
+        return gstate, adam, sstate, aux, aux_opt, metrics
 
     return train_step

@@ -1,0 +1,66 @@
+"""CLI entry point of the port — counterpart of ``gs_init_tpu/trainer.py``.
+
+    python -m gs_init_tpu_torch.trainer default --data_dir data/360_v2/garden \
+        --result_dir results/garden
+    python -m gs_init_tpu_torch.trainer mcmc --strategy.cap_max=6000000
+    python -m gs_init_tpu_torch.trainer default --ckpt=results/g/ckpts/ckpt_7000.npz
+
+Presets: ``default`` (the default strategy) and ``mcmc`` (the MCMC strategy
+with its opacity and scale regularisers and init overrides). ``--ckpt``
+loads a checkpoint (either package's), evaluates it and renders the
+trajectory instead of training. It runs on the card; ``main(argv,
+device="cpu")`` runs it on the CPU (the tests do).
+
+Still raising, each naming the slice that ports it: a multi-host launch
+(``COORDINATOR_ADDRESS`` or ``JAX_COORDINATOR_ADDRESS`` set) and
+multi-device settings (the multi-GPU slice), the live viewer
+(``--disable_viewer=false``), the depth networks and SAM (``config.check_slice``).
+"""
+from __future__ import annotations
+
+import os
+import sys
+
+from .config import Config, DefaultStrategyConfig, MCMCStrategyConfig, parse_cli
+
+
+def build_presets():
+    default = Config(strategy=DefaultStrategyConfig())
+    mcmc = Config(
+        strategy=MCMCStrategyConfig(),
+        init_opa=0.5,
+        init_scale=0.1,
+        opacity_reg=0.01,
+        scale_reg=0.01,
+    )
+    return {"default": default, "mcmc": mcmc}
+
+
+def run_with_config(cfg: Config, device=None):
+    """Train (or, with ``cfg.ckpt``, load, evaluate and render the
+    trajectory); returns the Runner."""
+    from .engine.runner import Runner
+
+    cfg.adjust_steps()
+    runner = Runner(cfg, device=device)
+    if cfg.ckpt:
+        step = runner.load(cfg.ckpt[0])
+        runner.eval(step)
+        runner.render_traj(step)
+    else:
+        runner.train()
+    return runner
+
+
+def main(argv=None, device=None):
+    if os.environ.get("JAX_COORDINATOR_ADDRESS") or os.environ.get("COORDINATOR_ADDRESS"):
+        raise NotImplementedError(
+            "a multi-host launch (COORDINATOR_ADDRESS) is not ported to gs_init_tpu_torch yet "
+            "(the multi-GPU slice in ROADMAP.md)"
+        )
+    cfg = parse_cli(argv if argv is not None else sys.argv[1:], build_presets())
+    return run_with_config(cfg, device=device)
+
+
+if __name__ == "__main__":
+    main()

@@ -196,6 +196,8 @@ def test_train_step_xla_matches_jax(rng, options):
     from gs_init_tpu_torch.engine import optim as popt
     from gs_init_tpu_torch.engine.params import PARAM_NAMES, state_from_numpy
     from gs_init_tpu_torch.engine.strategy import default as pstrat
+    from gs_init_tpu_torch.engine.train_step import AuxParams as PAux
+    from gs_init_tpu_torch.engine.train_step import init_aux_opt as p_init_aux_opt
     from gs_init_tpu_torch.engine.train_step import make_train_step
     from test_torch_train_step import CAP, _batches, _configs, _initial_state, _jax_state
     from torch_parity import CPU
@@ -214,8 +216,10 @@ def test_train_step_xla_matches_jax(rng, options):
     )
     pg = state_from_numpy(leaves, alive, CPU)
     bkgd = t(jax.random.uniform(key, (1, 3))) if options else None
-    _, pa, ps, pm = make_train_step(pcfg, pacfg, W, H)(
-        pg, popt.init_adam_state(pg.params), pstrat.init_state(CAP, CPU), pb, 0, bkgd=bkgd
+    paux = PAux()
+    _, pa, ps, _, _, pm = make_train_step(pcfg, pacfg, W, H)(
+        pg, popt.init_adam_state(pg.params), pstrat.init_state(CAP, CPU), paux, p_init_aux_opt(paux),
+        pb, 0, bkgd=bkgd,
     )
     np.testing.assert_allclose(float(pm["loss"]), float(jm["loss"]), rtol=1e-5)
     assert int(pm["overflow"]) == 0 and int(pm["pairs"]) == 0

@@ -36,7 +36,9 @@ from gs_init_tpu_torch.config import Config, DefaultStrategyConfig
 from gs_init_tpu_torch.engine import optim as popt
 from gs_init_tpu_torch.engine.params import PARAM_NAMES, state_from_numpy
 from gs_init_tpu_torch.engine.strategy import default as pstrat
+from gs_init_tpu_torch.engine.train_step import AuxParams as PAux
 from gs_init_tpu_torch.engine.train_step import Batch, make_train_step
+from gs_init_tpu_torch.engine.train_step import init_aux_opt as p_init_aux_opt
 from torch_parity import CPU, H, W, assert_close_scaled, n, scene, t
 
 CAP, N_PTS = 64, 48
@@ -126,13 +128,15 @@ def test_train_steps_match_jax(rng, options):
     pg = state_from_numpy(leaves, alive, CPU)
     pa = popt.init_adam_state(pg.params)
     ps = pstrat.init_state(CAP, CPU)
+    paux = PAux()
+    paux_opt = p_init_aux_opt(paux)
     slack = {k: np.zeros(v.shape) for k, v in leaves.items()}
     mu_prev = {k: np.zeros_like(v) for k, v in leaves.items()}
     for step in range(5):
         key = jax.random.PRNGKey(100 + step)
         bkgd = t(jax.random.uniform(key, (1, 3))) if options else None
         jg, ja, js, aux, aux_opt, jm = j_step(jg, ja, js, aux, aux_opt, jb, jnp.int32(step), key)
-        pg, pa, ps, pm = p_step(pg, pa, ps, pb, step, bkgd=bkgd)
+        pg, pa, ps, paux, paux_opt, pm = p_step(pg, pa, ps, paux, paux_opt, pb, step, bkgd=bkgd)
         np.testing.assert_allclose(float(pm["loss"]), float(jm["loss"]), rtol=1e-5)
         assert int(pm["pairs"]) == int(jm["pairs"]) > 0
         assert int(pm["overflow"]) == int(jm["overflow"]) == 0
