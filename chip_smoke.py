@@ -63,6 +63,21 @@ no result line.
    init; both mdi arms' eval PSNR must beat the sfm arm's, and the
    compositor kernels must launch once per train step. Then the sfm arm
    again with the batch prefetch thread off, for its steps per second.
+6c. The depth networks (random weights from seed 0; float32, TF32 off).
+   Metric3D small on one image at its full 616x1064 crop and
+   Depth-Anything-V2 vits at 518x798, on the card against the CPU: depth,
+   confidence and normals within NET_RTOL of each output's max, masks
+   equal. Then every network at its default backbone and input size on
+   phase 6a's 1296x840 images at batch 1 and 4 (the default predictor,
+   Metric3D large: ViT-L over 3,349 tokens; DA-V2 vitl, 2,109; MoGe-2 and
+   UniDepth vitl, about 1,800; DepthPro large at 1536: 35 + 1 crops of
+   384): seconds per image, peak memory, finite depth, unit normals; each
+   net's device time beside its ViT runs'. Then the init
+   alone with pick_model's Metric3D large behind a timer (its share of
+   predicting and aligning), and Runner(cfg) with init_type
+   monocular_depth, predictor metric3d, backbone vitl on phase 6a's scene
+   (depth cache off): more than the SfM points, 20 train steps with finite
+   losses and one launch of each compositor kernel per step.
 7. The trainer entry point: gs_init_tpu_torch.trainer.main on phase 5's
    scene, once per preset, 300 steps with checkpoints at 150 and 300, PLY
    export and compression; eval PSNR must rise, MCMC's alive count stay
@@ -154,6 +169,14 @@ ORACLE_GRAD_RTOL = 1e-3
 # points_from_depth on the card against the CPU with the same hypotheses:
 # (s, t) within 1e-4 relative, masks equal.
 PFD_RTOL = 1e-4
+# The depth networks (float32, TF32 off) on the card against the CPU with
+# the same random weights: depth, confidence and normals within 1e-4 of
+# each output's max |value|, the tolerance tests/test_torch_predictors.py
+# holds two loading routes to (cuDNN and the CPU sum a 12-layer ViT, the
+# fuse blocks and four GRU iterations in other orders); masks equal.
+NET_RTOL = 1e-4
+# Unit normals out of the predictors, at full width.
+NORMAL_ATOL = 1e-3
 
 
 def log(*args):
@@ -1207,7 +1230,7 @@ def clustered_colmap(tmp, width, height, n_cams, dev):
     return scene, data_dir
 
 
-def mdi_init_full_width(dev, width=1296, height=840, n_cams=24):
+def mdi_init_full_width(dev, scene, data_dir):
     """Phase 6a: the monocular-depth init in three configurations."""
     import torch
     from gs_init_tpu_torch.config import Config
@@ -1227,7 +1250,6 @@ def mdi_init_full_width(dev, width=1296, height=840, n_cams=24):
         c.mdi.postprocess.merge_impl = "native"
 
     with tempfile.TemporaryDirectory() as tmp:
-        scene, data_dir = clustered_colmap(tmp, width, height, n_cams, dev)
         parser = Parser(data_dir, factor=1, test_every=8)
         # Depths in the parser's world are the scene's times its similarity scale.
         k = float(np.cbrt(np.linalg.det(parser.transform[:3, :3])))
@@ -1327,6 +1349,254 @@ def three_arms(dev, steps=800, width=648, height=420, n_cams=12):
     return res
 
 
+# ----------------------------------------------------------------- phase 6c
+
+
+def held(tag, got, want, rtol):
+    """|got - want| / max|want|, raising above rtol."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err = float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-12))
+    if not err <= rtol:
+        raise RuntimeError(f"{tag}: card against CPU {err:.3e} of max, above {rtol:g}")
+    return err
+
+
+def depth_card_vs_cpu(dev):
+    """Phase 6c (1): Metric3D small on one image at its full crop and DA-V2
+    vits at 518x798, each built twice from seed 0 (the weights are drawn on
+    the CPU, so both copies hold the same), on the card and on the CPU."""
+    from gs_init_tpu_torch.mdi.predictors.depth_anything_v2 import DepthAnythingV2Predictor
+    from gs_init_tpu_torch.mdi.predictors.interface import CameraIntrinsics
+    from gs_init_tpu_torch.mdi.predictors.metric3d import CROP, Metric3DPredictor
+
+    rng = np.random.default_rng(5)
+    img = rng.integers(0, 256, (1,) + CROP + (3,), dtype=np.uint8)
+    intr = [CameraIntrinsics(fx=900.0, fy=900.0, cx=CROP[1] / 2, cy=CROP[0] / 2)]
+    m3d = {}
+    for where in (dev, "cpu"):
+        t0 = time.perf_counter()
+        out = Metric3DPredictor("small", allow_random_weights=True, device=where, seed=0).predict_depth_batch(img, intr)[0]
+        m3d[where] = out
+        log(f"  metric3d small, one {CROP[1]}x{CROP[0]} image on {where}: built and run in "
+            f"{time.perf_counter() - t0:.3f} s")
+    g, w = m3d[dev], m3d["cpu"]
+    errs = {k: held(f"metric3d small {k}", getattr(g, k), getattr(w, k), NET_RTOL)
+            for k in ("depth", "depth_confidence", "normal", "normal_confidence")}
+    if not np.array_equal(g.mask, w.mask):
+        raise RuntimeError("metric3d small: the card's mask differs from the CPU's")
+    log(f"  metric3d small card vs CPU, of each output's max (limit {NET_RTOL:g}): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + f"; depth range {w.depth.min():.4f}"
+        f"..{w.depth.max():.4f}")
+
+    img = rng.integers(0, 256, (1, 518, 798, 3), dtype=np.uint8)
+    dav = {where: DepthAnythingV2Predictor("vits", metric=True, allow_random_weights=True, device=where,
+                                           seed=0).predict_depth_batch(img, [None])[0]
+           for where in (dev, "cpu")}
+    err = held("depth_anything_v2 vits depth", dav[dev].depth, dav["cpu"].depth, NET_RTOL)
+    if not np.array_equal(dav[dev].mask, dav["cpu"].mask):
+        raise RuntimeError("depth_anything_v2 vits: the card's mask differs from the CPU's")
+    log(f"  depth_anything_v2 vits at 518x798 (37x57 patches) card vs CPU: depth {err:.3e} of max "
+        f"(limit {NET_RTOL:g}); depth range {dav['cpu'].depth.min():.4f}..{dav['cpu'].depth.max():.4f}")
+
+
+def vit_flops(tokens, dim, depth):
+    """Multiply-adds x 2 of a ViT's blocks: qkv, proj and the 4x MLP
+    (2 N 12 d^2) and the two attention products (4 N^2 d), per layer."""
+    return depth * (2 * tokens * 12 * dim * dim + 4 * tokens * tokens * dim)
+
+
+def full_width_nets(dev):
+    """Each depth network at its default backbone and input size: (label,
+    predictor factory, the net's input at 1296x840, the ViT runs inside it
+    as (module, input, tokens per sequence), the whole net's call)."""
+    import torch
+    from gs_init_tpu_torch.mdi.predictors import apple_depth_pro, depth_anything_v2, metric3d, moge, unidepth
+    from gs_init_tpu_torch.models.depth_pro import split_to_patches
+
+    kw = dict(allow_random_weights=True, device=dev)
+    rnd = lambda *shape: torch.randn(shape, device=dev, generator=torch.Generator(dev).manual_seed(0))
+    mh, mw = moge.token_budget_hw(840, 1296)
+
+    def depth_pro_vits(net, x):
+        enc = net.depth_pro.encoder
+        crops = torch.cat([split_to_patches(x[..., : int(1536 * r), : int(1536 * r)], 384, ov)
+                           for r, ov in zip(net.ratios, net.overlaps)])
+        return [(enc.patch_encoder.model, crops, 577), (enc.image_encoder.model, x[..., :384, :384], 577)]
+
+    K = torch.tensor([[[0.9 * mw, 0, mw / 2], [0, 0.9 * mw, mh / 2], [0, 0, 1]]], device=dev)
+    return (
+        ("metric3d large (the default)", lambda: metric3d.Metric3DPredictor("large", **kw),
+         rnd(1, 3, *metric3d.CROP), lambda n, x: [(n.encoder, x, 44 * 76 + 5)], lambda n, x: n(x)),
+        ("depth_anything_v2 vitl", lambda: depth_anything_v2.DepthAnythingV2Predictor("vitl", metric=True, **kw),
+         rnd(1, 3, 518, 798), lambda n, x: [(n.pretrained, x, 37 * 57 + 1)], lambda n, x: n(x)),
+        ("moge vitl", lambda: moge.MoGePredictor("vitl", **kw), rnd(1, 3, mh, mw),
+         lambda n, x: [(n.encoder, x, mh * mw // 196 + 1)], lambda n, x: n(x)),
+        ("unidepth vitl", lambda: unidepth.UniDepthPredictor("vitl", **kw), rnd(1, 3, mh, mw),
+         lambda n, x: [(n.encoder, x, mh * mw // 196 + 1)], lambda n, x: n(x, K)),
+        ("depth_pro large (1536, 35 + 1 crops of 384)", lambda: apple_depth_pro.AppleDepthProPredictor(**kw),
+         rnd(1, 3, 1536, 1536), depth_pro_vits, lambda n, x: n(x)),
+    )
+
+
+def depth_full_width(dev, scene, batches=((1, 3), (4, 2))):
+    """Phase 6c (2): every depth network at its default backbone and input
+    size on the clustered scene's 1296x840 images, at batch 1 and 4, random
+    weights: seconds per image, peak memory, finite outputs, unit normals;
+    then at batch 1 the whole net's device time and its ViT runs' (CUDA
+    events), with the ViTs' FLOP rate."""
+    import torch
+    from gs_init_tpu_torch.mdi.predictors.interface import CameraIntrinsics
+    from gs_init_tpu_torch.models.common import full_fp32
+
+    images = np.asarray(scene.images[:4])
+    intr = [CameraIntrinsics(fx=float(K[0, 0]), fy=float(K[1, 1]), cx=float(K[0, 2]), cy=float(K[1, 2]))
+            for K in np.asarray(scene.Ks[:4])]
+    for label, make, x, vit_runs, whole in full_width_nets(dev):
+        t0 = time.perf_counter()
+        pred = make()
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in pred.net.parameters())
+        log(f"  {label}: {n_params} parameters, built with random weights in "
+            f"{time.perf_counter() - t0:.3f} s; network input {x.shape[3]}x{x.shape[2]}")
+        for b, reps in batches:
+            pred.predict_depth_batch(images[:b], intr[:b])  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                outs = pred.predict_depth_batch(images[:b], intr[:b])
+            per = (time.perf_counter() - t0) / (reps * b)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            note = ""
+            for o in outs:
+                if not (np.isfinite(o.depth).all() and o.mask.any()):
+                    raise RuntimeError(f"{label}: non-finite depth or an empty mask")
+                if o.normal is not None:
+                    nn_err = float(np.abs(np.linalg.norm(o.normal, axis=-1) - 1).max())
+                    if not (np.isfinite(o.normal).all() and nn_err <= NORMAL_ATOL):
+                        raise RuntimeError(f"{label}: normals not unit ({nn_err:.3e})")
+                    note = f", |normal| - 1 at most {nn_err:.2e}"
+            log(f"  {label}, batch {b}: {per:.4f} s per image ({reps} calls), peak memory {peak:.3f} GiB"
+                f"{note}; depth {outs[0].depth.min():.3f}..{outs[0].depth.max():.3f}")
+        with torch.inference_mode(), full_fp32():
+            net_ms = cuda_ms(lambda: whole(pred.net, x), 3)
+            parts = []
+            for mod, inp, tokens in vit_runs(pred.net, x):
+                blk = mod.blocks
+                fl = vit_flops(tokens, blk[0].norm1.normalized_shape[0], len(blk)) * inp.shape[0]
+                parts.append((cuda_ms(lambda: mod(inp), 3), fl, inp.shape[0], tokens))
+            top = top_kernels(lambda: whole(pred.net, x))
+        vit_ms = sum(p[0] for p in parts)
+        fl = sum(p[1] for p in parts)
+        log(f"  {label}, batch 1, device time: whole net {net_ms:.3f} ms; ViT "
+            + " + ".join(f"{ms:.3f} ms ({n} x {tok} tokens)" for ms, _, n, tok in parts)
+            + f" = {vit_ms:.3f} ms, {fl / 1e12:.3f} TFLOP at {fl / vit_ms / 1e9:.2f} TFLOP/s (FP32 bound "
+            f"{fl / PEAK_FP32_FLOPS * 1e3:.3f} ms); the rest {net_ms - vit_ms:.3f} ms; top kernels (profiler, "
+            f"one call): " + "; ".join(f"{ms:.3f} ms x{n} {name[:60]}" for ms, n, name in top))
+        del pred
+        torch.cuda.empty_cache()
+
+
+def top_kernels(fn, k=4):
+    """The k kernels with the most device time in one call of fn (torch.profiler):
+    (ms, launches, name)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA:
+            us = getattr(evt, "self_device_time_total", None)
+            rows.append(((evt.self_cuda_time_total if us is None else us) / 1e3, evt.count, evt.key))
+    return sorted(rows, reverse=True)[:k]
+
+
+class TimedPredictor:
+    """A predictor whose predict_depth_batch calls are timed (they return
+    numpy, so each call ends synchronised)."""
+
+    def __init__(self, inner):
+        self.inner, self.name, self.seconds, self.calls = inner, inner.name, 0.0, 0
+
+    def predict_depth_batch(self, images, intrinsics):
+        t0 = time.perf_counter()
+        out = self.inner.predict_depth_batch(images, intrinsics)
+        self.seconds += time.perf_counter() - t0
+        self.calls += 1
+        return out
+
+
+def depth_runner_e2e(dev, data_dir, steps=20):
+    """Phase 6c (3): the default predictor end to end. The init alone first
+    (pick_model's Metric3D large behind a timer), for its share of
+    predicting and aligning; then Runner(cfg) builds its own through
+    pick_model, initialises and takes 20 train steps."""
+    import torch
+    from gs_init_tpu_torch import kernels
+    from gs_init_tpu_torch.config import Config
+    from gs_init_tpu_torch.datasets.parser import Parser
+    from gs_init_tpu_torch.engine.runner import Runner
+    from gs_init_tpu_torch.mdi.init import pts_and_rgb_from_monocular_depth
+    from gs_init_tpu_torch.mdi.predictors.interface import pick_model
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = Config(data_dir=data_dir, data_factor=1, test_every=8, init_type="monocular_depth",
+                     result_dir=os.path.join(tmp, "res"), max_steps=steps, eval_steps=[], save_steps=[],
+                     tb_every=10**6)
+        cfg.mdi.predictor, cfg.mdi.backbone = "metric3d", "vitl"
+        cfg.mdi.allow_random_weights = True
+        cfg.mdi.use_cache = False
+        cfg.mdi.predict_batch_size = 4
+        parser = Parser(data_dir, factor=1, test_every=8)
+
+        t0 = time.perf_counter()
+        model = TimedPredictor(pick_model(cfg, device=dev))
+        t1 = time.perf_counter()
+        per_image = []
+        pts, rgbs = pts_and_rgb_from_monocular_depth(cfg, parser, model=model, device=dev, per_image=per_image)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        n_img = len(per_image)
+        total, align = t2 - t1, sum(r["seconds"] for r in per_image)
+        log(f"  init alone, metric3d large, batch {cfg.mdi.predict_batch_size}: predictor built in "
+            f"{t1 - t0:.3f} s; {n_img} images in {total:.3f} s ({total / max(n_img, 1):.4f} s per image): "
+            f"predicting {model.seconds:.3f} s ({model.seconds / total:.3f}) in {model.calls} calls, aligning "
+            f"and unprojecting {align:.3f} s ({align / total:.3f}), the rest (post-processing, "
+            f"host) {total - model.seconds - align:.3f} s; {len(pts)} points out")
+        if not (n_img > 0 and len(pts) > 0 and np.isfinite(pts).all() and np.isfinite(rgbs).all()):
+            raise RuntimeError("the metric3d init gave no usable cloud")
+        del model
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        runner = Runner(cfg, parser=parser, device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        n0 = int(runner.gstate.alive.sum())
+        kernels.reset_launch_counts()
+        losses = [runner.train_iteration(step) for step in range(steps)]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = dict(kernels.LAUNCHES)
+        loss = np.array([float(m["loss"]) for m in losses])
+        want = dict(composite_fwd=steps, composite_bwd=steps)
+        log(f"  Runner(cfg), metric3d vitl: set-up and init {t1 - t0:.3f} s, {n0} gaussians "
+            f"({len(parser.points)} of them SfM points); {steps} steps in {t2 - t1:.3f} s, loss "
+            f"{loss[0]:.4f} -> {loss[-1]:.4f}, pairs {int(losses[-1]['pairs'])} (overflow "
+            f"{int(losses[-1]['overflow'])}); launches {json.dumps(launches)} (want {json.dumps(want)})")
+        if n0 <= len(parser.points):  # the SfM points are included by default
+            raise RuntimeError("the Runner's metric3d init gave no depth points")
+        if not np.isfinite(loss).all():
+            raise RuntimeError("non-finite loss after the metric3d init")
+        if any(launches[k] != v for k, v in want.items()):
+            raise RuntimeError("the compositor did not launch once per train step after the metric3d init")
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -1383,10 +1653,16 @@ def main():
     log("phase 5: the Runner end to end")
     runner_e2e()
 
-    log("phase 6a: monocular-depth init at full width")
-    mdi_init_full_width(dev)
-    log("phase 6b: the three arms, sfm, monocular_depth and sfm+mdi; sfm without prefetch")
-    three_arms(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        scene, data_dir = clustered_colmap(tmp, 1296, 840, 24, dev)
+        log("phase 6a: monocular-depth init at full width")
+        mdi_init_full_width(dev, scene, data_dir)
+        log("phase 6b: the three arms, sfm, monocular_depth and sfm+mdi; sfm without prefetch")
+        three_arms(dev)
+        log("phase 6c: the depth networks, card against CPU, at full width, and the Runner's metric3d init")
+        depth_card_vs_cpu(dev)
+        depth_full_width(dev, scene)
+        depth_runner_e2e(dev, data_dir)
     log("phase 7: the trainer entry point, both presets, checkpoints and the eval-only restart")
     trainer_entry()
 

@@ -4,11 +4,12 @@
 dataclasses (``MonocularDepthInitConfig`` and the ones it nests) keep the
 JAX package's field names and defaults so a configuration carries over.
 ``MCMCStrategyConfig`` too. The port runs both strategies from SfM, random
-or monocular-depth init with the stub predictor, with pose / appearance /
-bilateral-grid optimisation, patch crops, checkpoints, PLY export,
-compression and the profiler window. ``check_slice`` raises on what is not
-ported yet (the live viewer, multi-device training, the depth networks, SAM
-and the init-cloud export), naming the slice that brings it.
+or monocular-depth init (any of the five depth networks or the stub
+predictor), with pose / appearance / bilateral-grid optimisation, patch
+crops, checkpoints, PLY export, compression and the profiler window.
+``check_slice`` raises on what is not ported yet (the live viewer,
+multi-device training, SAM and the init-cloud export), naming the queue
+that brings it.
 
 TPU-only knobs are accepted and have no effect here: the port always uses
 the f32 16-column pair table and f32 gradient sums (``wire8``,
@@ -148,7 +149,6 @@ class PointCloudPostprocessConfig:
 
 @dataclass(eq=False)
 class MonocularDepthInitConfig:
-    # Only "stub" runs in the port yet; the depth networks raise (check_slice).
     predictor: Literal[
         "stub", "depth_anything_v2", "metric3d", "moge", "unidepth", "depth_pro",
     ] = "metric3d"
@@ -171,7 +171,7 @@ class MonocularDepthInitConfig:
     use_cache: bool = True
     scale_clamp_quantile: float = 0.0
     allow_random_weights: bool = False
-    # Images per predictor call; the stub predicts one at a time either way.
+    # Images per predictor call (one batch on the card); the stub predicts one at a time.
     predict_batch_size: int = 1
 
 
@@ -316,10 +316,8 @@ class Config:
 # Monocular-depth-init settings not ported yet: (condition on cfg.mdi,
 # what it selects, the ROADMAP queue entry that ports it).
 _LATER_MDI = (
-    (lambda m: m.predictor != "stub", "depth networks other than the stub predictor",
-     "the depth-network slice"),
     (lambda m: m.alignment.segmentation.method == "sam", "SAM segmentation",
-     "the depth-network slice"),
+     "the depth-network queue"),
     (lambda m: m.export_ply or m.pts_only or m.pts_output_dir or m.pts_output_per_image,
      "PLY export of the init cloud", "the eval/integration slice"),
 )

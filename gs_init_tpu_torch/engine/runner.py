@@ -1,6 +1,7 @@
 """Training runner — port of ``gs_init_tpu/engine/runner.py`` for one device.
 
-SfM, random or monocular-depth init (the stub predictor, ``mdi/init.py``);
+SfM, random or monocular-depth init (``mdi/init.py``: a depth network or
+the stub predictor);
 the default strategy's refine and opacity-reset cadence or the MCMC
 strategy's relocation and noise; pose / appearance / bilateral-grid groups
 (with the fixed ``pose_noise`` perturbation applied in the batch); random

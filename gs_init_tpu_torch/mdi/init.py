@@ -111,7 +111,7 @@ def pts_and_rgb_from_monocular_depth(
     mdi = cfg.mdi
     check_mdi(mdi)
     dev = resolve_device(device)
-    model = model or pick_model(cfg)
+    model = model or pick_model(cfg, device=dev)
     gen = generator if generator is not None else make_generator(cfg.seed, dev)
     noise_rng = np.random.default_rng(cfg.seed)  # noise_frac, as the JAX package draws it
     rbf_rng = np.random.default_rng([cfg.seed, 1])  # seeds of the max_rbf_points subsets

@@ -192,7 +192,6 @@ def test_monocular_depth_settings_the_port_refuses(colmap_scene, tmp_path):
 
     check_slice(cfg())
     for mdi, what in (
-        (dict(predictor="metric3d"), "depth networks"),  # metric3d is the default predictor
         (dict(export_ply=True), "PLY export"),
         (dict(pts_output_dir=str(tmp_path)), "PLY export"),
     ):
@@ -202,7 +201,9 @@ def test_monocular_depth_settings_the_port_refuses(colmap_scene, tmp_path):
     c.mdi.alignment.segmentation.method = "sam"
     with pytest.raises(NotImplementedError, match="SAM"):
         Runner(c, device="cpu")
-    c = cfg(predictor="metric3d")
+    for ported in ("metric3d", "depth_anything_v2", "moge", "unidepth", "depth_pro"):
+        check_slice(cfg(predictor=ported))  # every depth network runs; metric3d is the default
+    c = cfg(export_ply=True)
     c.init_type = "sfm"
     check_slice(c)  # mdi settings are not read unless the init uses them
 

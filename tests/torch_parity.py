@@ -91,3 +91,41 @@ def jax_hypotheses(key, valid, num_hyp: int, sample_size: int = 4) -> np.ndarray
     keys = jax.random.split(key, num_hyp)
     draw = lambda k: jax.random.categorical(k, logits, shape=(sample_size,))
     return np.array(jax.vmap(draw)(keys))
+
+
+
+def random_flax_variables(module, *args, seed: int = 0) -> dict:
+    """Random variables for a flax ``module`` as nested dicts of numpy
+    arrays (the form the port's ``state_dict_from_flax`` functions take).
+    Shapes come from ``jax.eval_shape`` of its init, values from numpy (far
+    quicker than running flax's initialisers op by op): kernels normal with
+    variance 1/fan_in, biases normal(0, 0.1), norm scales and LayerScale
+    1 + normal(0, 0.1), tokens and position embeddings normal(0, 1). No
+    zero bias and no unit scale, so every leaf's carry-across shows."""
+    import flax.linen as fnn
+    import jax
+
+    # The base class's init: a test may have replaced the net class's own.
+    shapes = jax.eval_shape(lambda: fnn.Module.init(module, jax.random.PRNGKey(0), *args))
+    rng = np.random.default_rng(seed)
+
+    def draw(path, s):
+        name = path[-1].key
+        if name == "kernel":
+            x = rng.normal(0.0, 1.0 / np.sqrt(np.prod(s.shape[:-1])), s.shape)
+        elif name in ("scale", "gamma"):
+            x = 1.0 + rng.normal(0.0, 0.1, s.shape)
+        elif name == "bias":
+            x = rng.normal(0.0, 0.1, s.shape)
+        else:
+            x = rng.normal(0.0, 1.0, s.shape)
+        return x.astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
+def carry(module: torch.nn.Module, state_dict: dict) -> torch.nn.Module:
+    """Load a carried-across state dict into ``module``, every parameter
+    present and nothing left over, and put it in eval mode."""
+    module.load_state_dict(state_dict, strict=True)
+    return module.eval()
