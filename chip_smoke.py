@@ -48,7 +48,9 @@ no result line.
    step and phase times (the aux Adam has its own mark), peak memory.
 5. The Runner end to end: a synthetic COLMAP scene at 648x420 with 12
    cameras, 300 steps with refines at steps 100 and 200; eval PSNR must
-   rise from the initial gaussians to the trained ones.
+   rise from the initial gaussians to the trained ones, and the port's
+   reader must find train/loss, train/num_GS, train/mem_peak_gb and
+   val/psnr in the run's TensorBoard event file.
 6. Monocular-depth init. (a) At full width: scripts/e2e_quality.py's
    clustered scene at 1296x840 with 24 cameras and 250 SfM points (the
    foreground only), the stub predictor over the scene's surface depth
@@ -65,9 +67,10 @@ no result line.
    again with the batch prefetch thread off, for its steps per second.
 6c. The depth networks (random weights from seed 0; float32, TF32 off).
    Metric3D small on one image at its full 616x1064 crop and
-   Depth-Anything-V2 vits at 518x798, on the card against the CPU: depth,
-   confidence and normals within NET_RTOL of each output's max, masks
-   equal. Then every network at its default backbone and input size on
+   Depth-Anything-V2 vits at 518x798, then MoGe-2 vits, UniDepth-v2 vits
+   and a narrow DepthPro (ViT width 64, 4 blocks, 768 input, FOV head) on
+   one 1296x840 image, on the card against the CPU: depth, confidence and
+   normals within NET_RTOL of each output's max, masks equal. Then every network at its default backbone and input size on
    phase 6a's 1296x840 images at batch 1 and 4 (the default predictor,
    Metric3D large: ViT-L over 3,349 tokens; DA-V2 vitl, 2,109; MoGe-2 and
    UniDepth vitl, about 1,800; DepthPro large at 1536: 35 + 1 crops of
@@ -78,12 +81,34 @@ no result line.
    monocular_depth, predictor metric3d, backbone vitl on phase 6a's scene
    (depth cache off): more than the SfM points, 20 train steps with finite
    losses and one launch of each compositor kernel per step.
+6d. SAM (random weights). A narrow SAM (width 64, 4 blocks, 128 px) on
+   the card against the CPU, each output within SAM_RTOL of its max; SAM
+   ViT-H at 1024, batch 1: the encoder's device time, TFLOP/s and peak
+   memory, a 64-prompt decoder call, the top kernels of each; the
+   automatic mask generator on one of phase 6a's 1296x840 images (seconds,
+   masks kept, at the default filters and with every mask passing them);
+   Runner(cfg) with the stub depth aligned per SAM region
+   (segmentation.method="sam", ViT-H) on phase 6a's scene into 20 train
+   steps, one launch of each compositor kernel per step.
 7. The trainer entry point: gs_init_tpu_torch.trainer.main on phase 5's
    scene, once per preset, 300 steps with checkpoints at 150 and 300, PLY
    export and compression; eval PSNR must rise, MCMC's alive count stay
    within cap_max, the exports hold every live splat, the eval-only
    restart (--ckpt) reproduce the run's PSNR to 1e-6 and write trajectory
    frames, and a Runner loaded from ckpt_150 take a finite step.
+8. Eval and integration, with random LPIPS weights written in the npz
+   layout to a temporary GS_TPU_CHECKPOINT_DIR. LPIPS at 1296x840 on the
+   card against the CPU (within LPIPS_RTOL of the value) and its time per
+   eval image, with and without cuDNN; phase 5 again, now with lpips in
+   its eval stats and TensorBoard scalars; a two-run sweep (sh_degree 1
+   and 3, 200 steps each) on phase 5's scene through the port's trainer as
+   subprocesses, each run rescored from its saved renders, then the
+   results tables with the TensorBoard columns; the Method's lifecycle
+   with the appearance embedding (50 steps, save, render,
+   optimize_embedding's 128 Adam steps, export_demo); the live viewer on
+   an ephemeral port while the Runner trains 300 steps on a thread, its
+   last /render equal to Runner.render. Every path's compositor launches
+   are counted and must match its steps and renders.
 
 The line before the last lists the kernels as JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -177,6 +202,19 @@ PFD_RTOL = 1e-4
 NET_RTOL = 1e-4
 # Unit normals out of the predictors, at full width.
 NORMAL_ATOL = 1e-3
+# MoGe-2's mask is its mask logit > 0, and a random network's logit map
+# crosses 0 all over the image: a pixel whose logit lies within rounding of
+# 0 may fall on either side on the card and on the CPU. MoGe-2, UniDepth and
+# DepthPro masks may differ at up to 1e-4 of the pixels (Metric3D's and
+# DA-V2's must be equal).
+MASK_FLIP_FRACTION = 1e-4
+# The narrow SAM on the card against the CPU with the same random weights:
+# each output within 1e-5 of its max |value| (four blocks and the two-way
+# decoder in f32, summed in other orders).
+SAM_RTOL = 1e-5
+# LPIPS on the card against the CPU with the same random weights, within
+# 1e-5 of the value (five f32 convolutions and means over 1296x840).
+LPIPS_RTOL = 1e-5
 
 
 def log(*args):
@@ -1082,17 +1120,30 @@ def kernel_report(ctx, launches, scan_err):
 # ------------------------------------------------------------------ phase 5
 
 
+def phase5_scene(root, width=648, height=420):
+    """Phase 5's scene (400 gaussians, 12 cameras at 648x420, 300 SfM
+    points) as a COLMAP dataset, root/scene."""
+    from gs_init_tpu_torch.datasets.synthetic import make_scene, write_colmap_scene
+
+    sc = make_scene(seed=0, n_gaussians=400, n_cams=12, width=width, height=height)
+    return write_colmap_scene(root, sc, n_points=300)
+
+
 def runner_e2e(steps=300, width=648, height=420):
+    """The Runner from SfM init for `steps` steps with refines at 100 and
+    200; eval PSNR must rise. Its TensorBoard scalars (train/loss,
+    train/num_GS, train/mem_peak_gb, val/psnr) are read back with the
+    port's reader, and with LPIPS weights present the eval reports lpips."""
     import torch
     from gs_init_tpu_torch import kernels
     from gs_init_tpu_torch.config import Config, DefaultStrategyConfig
-    from gs_init_tpu_torch.datasets.synthetic import make_scene, write_colmap_scene
     from gs_init_tpu_torch.engine.runner import Runner
+    from gs_init_tpu_torch.ops.lpips import lpips_available
+    from gs_init_tpu_torch.utils.tb import read_scalars
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        sc = make_scene(seed=0, n_gaussians=400, n_cams=12, width=width, height=height)
-        data_dir = write_colmap_scene(tmp, sc, n_points=300)
+        data_dir = phase5_scene(tmp, width, height)
         cfg = Config(
             data_dir=data_dir, data_factor=1, result_dir=os.path.join(tmp, "res"), max_steps=steps,
             eval_steps=[], test_every=4, max_gaussians=4096, pair_capacity=1 << 18,
@@ -1108,16 +1159,26 @@ def runner_e2e(steps=300, width=648, height=420):
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         with open(os.path.join(cfg.result_dir, "stats", f"val_step{steps}.json")) as f:
-            psnr1 = json.load(f)["psnr"]
+            stats = json.load(f)
+        psnr1 = stats["psnr"]
         n1 = int(runner.gstate.alive.sum())
+        scalars = read_scalars(os.path.join(cfg.result_dir, "tb"))
         log(f"  runner: {len(runner.trainset)} train / {len(runner.valset)} val views at "
             f"{width}x{height}, gaussians {n0} -> {n1}, {steps} steps in {t2 - t1:.3f} s "
             f"(set-up {t1 - t0:.3f} s), launches {json.dumps(dict(kernels.LAUNCHES))}; "
-            f"eval PSNR {psnr0:.3f} -> {psnr1:.3f}")
+            f"eval PSNR {psnr0:.3f} -> {psnr1:.3f}, LPIPS {stats.get('lpips', 'not computed (no weights)')}; "
+            f"TensorBoard tags read back: {json.dumps({k: len(v) for k, v in sorted(scalars.items())})}")
         if not psnr1 > psnr0:
             raise RuntimeError("eval PSNR did not rise over the Runner's training")
         if n1 <= n0:
             raise RuntimeError("the Runner's refines did not grow the gaussians")
+        want_tags = ("train/loss", "train/num_GS", "train/mem_peak_gb", "val/psnr") + (
+            ("val/lpips",) if lpips_available() else ())
+        missing = [k for k in want_tags if not scalars.get(k)]
+        if missing or scalars["val/psnr"][-1] != (steps, float(np.float32(psnr1))):
+            raise RuntimeError(f"the Runner's TensorBoard scalars miss {missing} or disagree with its stats")
+        if lpips_available() and not np.isfinite(stats.get("lpips", np.nan)):
+            raise RuntimeError("LPIPS weights are present but the eval reported no finite lpips")
 
 
 # ------------------------------------------------------------------ phase 7
@@ -1398,6 +1459,37 @@ def depth_card_vs_cpu(dev):
     log(f"  depth_anything_v2 vits at 518x798 (37x57 patches) card vs CPU: depth {err:.3e} of max "
         f"(limit {NET_RTOL:g}); depth range {dav['cpu'].depth.min():.4f}..{dav['cpu'].depth.max():.4f}")
 
+    # MoGe-2 and UniDepth-v2 on their vits backbone at the default token
+    # budget, and a narrow DepthPro (ViT width 64, 4 blocks, 192-px crops
+    # of a 768 input, the FOV head on), on one 1296x840 image.
+    from gs_init_tpu_torch.mdi.predictors.apple_depth_pro import AppleDepthProPredictor
+    from gs_init_tpu_torch.mdi.predictors.moge import MoGePredictor
+    from gs_init_tpu_torch.mdi.predictors.unidepth import UniDepthPredictor
+
+    img = rng.integers(0, 256, (1, 840, 1296, 3), dtype=np.uint8)
+    intr = [CameraIntrinsics(fx=1100.0, fy=1100.0, cx=648.0, cy=420.0)]
+    narrow_pro = dict(vit_dim=64, vit_depth=4, vit_heads=4, vit_image_size=192, vit_patch=16, fusion=32,
+                      intermediate_hook_ids=(1, 0), intermediate_feature_dims=(32, 32),
+                      scaled_images_feature_dims=(64, 64, 32), use_fov=True, input_size=768)
+    for label, make, intrinsics in (
+        ("moge vits", lambda where: MoGePredictor("vits", allow_random_weights=True, device=where), [None]),
+        ("unidepth vits", lambda where: UniDepthPredictor("vits", allow_random_weights=True, device=where), intr),
+        ("depth_pro narrow (768 input, FOV head)",
+         lambda where: AppleDepthProPredictor(allow_random_weights=True, device=where, **narrow_pro), [None]),
+    ):
+        t0 = time.perf_counter()
+        out = {where: make(where).predict_depth_batch(img, intrinsics)[0] for where in (dev, "cpu")}
+        g, w = out[dev], out["cpu"]
+        errs = {k: held(f"{label} {k}", getattr(g, k), getattr(w, k), NET_RTOL)
+                for k in ("depth", "depth_confidence", "normal") if getattr(w, k) is not None}
+        flipped = float(np.mean(g.mask != w.mask))
+        if not flipped <= MASK_FLIP_FRACTION:
+            raise RuntimeError(f"{label}: the card's mask differs from the CPU's at {flipped:.2e} of the pixels")
+        log(f"  {label}, one 1296x840 image, card vs CPU, of each output's max (limit {NET_RTOL:g}): "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + f"; mask pixels apart {flipped:.2e} "
+            f"(limit {MASK_FLIP_FRACTION:g}); depth range "
+            f"{w.depth.min():.4f}..{w.depth.max():.4f}; both built and run in {time.perf_counter() - t0:.3f} s")
+
 
 def vit_flops(tokens, dim, depth):
     """Multiply-adds x 2 of a ViT's blocks: qkv, proj and the 4x MLP
@@ -1597,6 +1689,347 @@ def depth_runner_e2e(dev, data_dir, steps=20):
             raise RuntimeError("the compositor did not launch once per train step after the metric3d init")
 
 
+# ----------------------------------------------------------------- phase 6d
+
+
+def sam_encoder_flops(img_size: int, dim: int, depth: int, global_attn_indexes, window_size: int = 14) -> int:
+    """Multiply-adds x 2 of the encoder's blocks: qkv, proj and the 4x MLP
+    (2 N 12 d^2 over the grid's N tokens) and the attention products, the
+    relative-position terms included (4 n^2 d per window of n tokens, plus
+    2 n d (h + w))."""
+    g = img_size // 16
+    n_tok = g * g
+    total = 0
+    for i in range(depth):
+        total += 2 * n_tok * 12 * dim * dim
+        if i in global_attn_indexes:
+            wins, n, side = 1, n_tok, g
+        else:
+            gp = -(-g // window_size) * window_size
+            wins, n, side = (gp // window_size) ** 2, window_size**2, window_size
+        total += wins * (4 * n * n * dim + 2 * n * dim * 2 * side)
+    return int(total)
+
+
+def sam_narrow(seed=0):
+    from gs_init_tpu_torch.models.common import build
+    from gs_init_tpu_torch.models.sam import Sam, init_random_sam_
+
+    return init_random_sam_(build(Sam, img_size=128, dim=64, depth=4, num_heads=4, global_attn_indexes=(1, 3),
+                                  window_size=4), seed).eval()
+
+
+def sam_card_vs_cpu(dev):
+    """Phase 6d (1): a narrow SAM (width 64, 4 blocks, 2 of them global,
+    window 4, 128 px; the decoder at its published width), the same random
+    weights on the card and on the CPU: the image embedding, the prompt
+    encoder's outputs and the decoder's masks and IoU predictions, each
+    within SAM_RTOL of its max."""
+    import torch
+    from gs_init_tpu_torch.models.common import full_fp32
+
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(1, 3, 128, 128, generator=g)
+    pts = torch.rand(16, 2, 2, generator=g) * 128
+    labels = torch.tensor([[1, -1], [1, 0]] * 8)
+    outs = {}
+    for where in (dev, "cpu"):
+        sam = sam_narrow().to(where)
+        with torch.inference_mode(), full_fp32():
+            embed = sam.image_encoder(x.to(where))
+            sparse, no_mask = sam.prompt_encoder(pts.to(where), labels.to(where))
+            pe = sam.prompt_encoder.dense_pe()
+            masks, iou = sam.mask_decoder(embed, pe, sparse, no_mask)
+        outs[where] = [t.cpu().numpy() for t in (embed, sparse, pe, masks, iou)]
+    names = ("embedding", "sparse prompt", "dense pe", "masks", "iou")
+    errs = {k: held(f"sam narrow {k}", a, b, SAM_RTOL) for k, a, b in zip(names, outs[dev], outs["cpu"])}
+    log(f"  sam narrow (64 wide, 4 blocks, 128 px) card vs CPU, of each output's max (limit {SAM_RTOL:g}): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+
+
+def sam_full_width(dev, scene):
+    """Phase 6d (2, 3): SAM ViT-H at 1024 with random weights: the
+    encoder's device time, FLOP rate and peak memory at batch 1, a decoder
+    call on 64 point prompts, the top kernels of each; then the automatic
+    mask generator on one of the clustered scene's 1296x840 images at its
+    default filters and with every mask passing them."""
+    import torch
+    from gs_init_tpu_torch.mdi.segmentation_sam import SamMaskGenerator
+    from gs_init_tpu_torch.models.common import full_fp32
+
+    t0 = time.perf_counter()
+    gen = SamMaskGenerator("vit_h", allow_random_weights=True, device=dev)
+    torch.cuda.synchronize()
+    net = gen.net
+    n_params = sum(p.numel() for p in net.parameters())
+    log(f"  sam vit_h: {n_params} parameters, built with random weights in {time.perf_counter() - t0:.3f} s")
+    size = gen.img_size
+    x = torch.randn(1, 3, size, size, device=dev, generator=torch.Generator(dev).manual_seed(0))
+    pts = torch.rand(64, 2, 2, device=dev, generator=torch.Generator(dev).manual_seed(1)) * size
+    labels = torch.tensor([[1, -1]] * 64, device=dev)
+    with torch.inference_mode(), full_fp32():
+        embed = net.image_encoder(x)
+        pe = net.prompt_encoder.dense_pe()
+        sparse, no_mask = net.prompt_encoder(pts, labels)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        enc_ms = cuda_ms(lambda: net.image_encoder(x), 3)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        dec_ms = cuda_ms(lambda: net.mask_decoder(embed, pe, sparse, no_mask), 5)
+        top_enc = top_kernels(lambda: net.image_encoder(x))
+        top_dec = top_kernels(lambda: net.mask_decoder(embed, pe, sparse, no_mask))
+    fl = sam_encoder_flops(size, 1280, 32, (7, 15, 23, 31))
+    log(f"  sam vit_h encoder, batch 1 at {size}: {enc_ms:.3f} ms (device, CUDA events), {fl / 1e12:.3f} TFLOP "
+        f"at {fl / enc_ms / 1e9:.2f} TFLOP/s (FP32 bound {fl / PEAK_FP32_FLOPS * 1e3:.3f} ms), peak memory "
+        f"{peak:.3f} GiB above the weights; top kernels: "
+        + "; ".join(f"{ms:.3f} ms x{n} {name[:60]}" for ms, n, name in top_enc))
+    log(f"  sam decoder, 64 point prompts: {dec_ms:.3f} ms; top kernels: "
+        + "; ".join(f"{ms:.3f} ms x{n} {name[:60]}" for ms, n, name in top_dec))
+    img = (np.clip(np.asarray(scene.images[0]), 0, 1) * 255).astype(np.uint8)
+    for label, kw in (("default filters", {}), ("every mask passing the filters",
+                                                 dict(pred_iou_thresh=-np.inf, stability_score_thresh=-np.inf))):
+        g = gen if not kw else SamMaskGenerator("vit_h", allow_random_weights=True, device=dev, **kw)
+        g.generate(img)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        masks = g.generate(img)
+        sec = time.perf_counter() - t0
+        log(f"  mask generator, {label}, one {img.shape[1]}x{img.shape[0]} image: {sec:.3f} s, "
+            f"{len(masks)} masks kept (areas {[m['area'] for m in masks][:8]})")
+        del g
+    del gen, net
+    torch.cuda.empty_cache()
+
+
+def sam_runner_e2e(dev, scene, data_dir, steps=20):
+    """Phase 6d (4): Runner(cfg) with the stub's surface depth aligned per
+    SAM region (ViT-H, random weights, segmentation.method="sam") on the
+    clustered scene, then 20 train steps with one launch of each
+    compositor kernel per step."""
+    import torch
+    from gs_init_tpu_torch import kernels
+    from gs_init_tpu_torch.config import Config
+    from gs_init_tpu_torch.datasets.parser import Parser
+    from gs_init_tpu_torch.engine.runner import Runner
+    from gs_init_tpu_torch.mdi import segmentation_sam
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = Config(data_dir=data_dir, data_factor=1, test_every=8, init_type="monocular_depth",
+                     result_dir=os.path.join(tmp, "res"), max_steps=steps, eval_steps=[], save_steps=[],
+                     tb_every=10**6)
+        cfg.mdi.predictor = "stub"
+        cfg.mdi.use_cache = False
+        seg = cfg.mdi.alignment.segmentation
+        seg.method, seg.sam_allow_random_weights = "sam", True
+        parser = Parser(data_dir, factor=1, test_every=8)
+        t0 = time.perf_counter()
+        runner = Runner(cfg, parser=parser, mdi_model=surface_depth_stub(scene, parser), device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        n0 = int(runner.gstate.alive.sum())
+        kernels.reset_launch_counts()
+        losses = np.array([float(runner.train_iteration(step)["loss"]) for step in range(steps)])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = {k: kernels.LAUNCHES[k] for k in ("composite_fwd", "composite_bwd")}
+        n_img = len(runner.trainset)
+        log(f"  Runner(cfg), stub depth with SAM vit_h regions: set-up and init {t1 - t0:.3f} s "
+            f"({(t1 - t0) / n_img:.3f} s per image over {n_img}), {n0} gaussians; {steps} steps in "
+            f"{t2 - t1:.3f} s, loss {losses[0]:.4f} -> {losses[-1]:.4f}; launches {json.dumps(launches)}")
+        segmentation_sam._cached_generator.cache_clear()
+        if n0 <= len(parser.points) or not np.isfinite(losses).all():
+            raise RuntimeError("the SAM-segmented init gave no depth points or a non-finite loss")
+        if launches != dict(composite_fwd=steps, composite_bwd=steps):
+            raise RuntimeError("the compositor did not launch once per train step after the SAM init")
+        del runner
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------------ phase 8
+
+
+def write_lpips_weights(ckpt_dir, seed=0):
+    """Random AlexNet convolutions and LPIPS calibration in the npz layout
+    of scripts/convert_lpips.py."""
+    rng = np.random.default_rng(seed)
+    shapes = [(11, 11, 3, 64), (5, 5, 64, 192), (3, 3, 192, 384), (3, 3, 384, 256), (3, 3, 256, 256)]
+    out = {}
+    for i, sh in enumerate(shapes):
+        out[f"conv{i}_w"] = (rng.normal(size=sh) / np.sqrt(np.prod(sh[:3]))).astype(np.float32)
+        out[f"conv{i}_b"] = rng.normal(0, 0.05, sh[-1]).astype(np.float32)
+        out[f"lin{i}"] = rng.uniform(0, 0.1, sh[-1]).astype(np.float32)
+    np.savez(os.path.join(ckpt_dir, "lpips_alex.npz"), **out)
+
+
+def lpips_card_vs_cpu(dev):
+    """Phase 8 (1): LPIPS at 1296x840 on the card against the CPU, and its
+    time per eval image, with and without cuDNN."""
+    import torch
+    from gs_init_tpu_torch.models.common import without_cudnn
+    from gs_init_tpu_torch.ops.lpips import lpips
+
+    g = torch.Generator().manual_seed(3)
+    a = torch.rand(1, 840, 1296, 3, generator=g)
+    b = (a + 0.1 * torch.randn(1, 840, 1296, 3, generator=g)).clamp(0, 1)
+    want = float(lpips(a, b))
+    ad, bd = a.to(dev), b.to(dev)
+    got = float(lpips(ad, bd))
+    err = abs(got - want) / abs(want)
+    ms = {}
+    for _ in range(2):
+        ms.setdefault("cudnn", []).append(cuda_ms(lambda: lpips(ad, bd), 10))
+        with without_cudnn():
+            ms.setdefault("no cudnn", []).append(cuda_ms(lambda: lpips(ad, bd), 10))
+    top = top_kernels(lambda: lpips(ad, bd))
+    log(f"  lpips at 1296x840: card {got:.7f}, CPU {want:.7f}, |diff| {err:.3e} of the value (limit {LPIPS_RTOL:g}); "
+        f"{min(ms['cudnn']):.3f} ms per eval image (device, CUDA events), {min(ms['no cudnn']):.3f} ms without "
+        "cuDNN; top kernels: " + "; ".join(f"{t:.3f} ms x{n} {name[:60]}" for t, n, name in top))
+    if not err <= LPIPS_RTOL:
+        raise RuntimeError("LPIPS on the card disagrees with the CPU")
+
+
+def sweep_e2e(root, steps=200):
+    """Phase 8 (3): a two-run sweep (sh_degree 1 and 3) on phase 5's scene
+    through the port's trainer as subprocesses, each run evaluated from its
+    saved renders; then the results tables with the TensorBoard columns."""
+    from gs_init_tpu_torch.evaluation.sweep import execute_sweep
+    from gs_init_tpu_torch.evaluation.tables import collect_results, make_table
+
+    data_root = os.path.join(root, "data")
+    phase5_scene(data_root)
+    out = os.path.join(root, "sweep")
+    extra = ["--data_factor=1", f"--max_steps={steps}", f"--eval_steps=[{steps}]", "--test_every=4",
+             "--max_gaussians=4096", "--pair_capacity=262144", "--sh_degree_interval=50", "--tb_every=50",
+             "--strategy.refine_start_iter=50", "--strategy.refine_every=100", "--strategy.reset_every=10000"]
+    t0 = time.perf_counter()
+    runs = execute_sweep(data_root, ["scene"], ["default --sh_degree={1,3}"], out, extra_args=extra, evaluate=True)
+    sec = time.perf_counter() - t0
+    for r in runs:
+        with open(os.path.join(r.out_dir, "stats", "train_final.json")) as f:
+            final = json.load(f)
+        with open(os.path.join(r.out_dir, f"results-{steps}.json")) as f:
+            res = json.load(f)
+        n_val = len(res["per_image"])
+        launches = final.get("kernel_launches", {})
+        log(f"  sweep run {os.path.basename(r.out_dir)}: done {r.done}, launches in its trainer "
+            f"{json.dumps(launches)}, evaluate_run over {n_val} saved renders "
+            + " ".join(f"{k}={v:.4f}" for k, v in res["metrics"].items()))
+        want = dict(composite_fwd=steps + n_val, composite_bwd=steps)
+        if not r.done or {k: launches.get(k) for k in want} != want:
+            raise RuntimeError(f"sweep run {r.out_dir} failed or did not launch the compositor once per step")
+    rows = collect_results(out)
+    log(f"  sweep of {len(runs)} runs in {sec:.3f} s; tables:")
+    for metric in ("psnr", "lpips", "tb_train/loss", "tb_train/num_GS"):
+        for line in make_table(rows, metric).splitlines():
+            log(f"    {line}")
+    if len(rows) != 2 or any(k not in r for r in rows for k in ("psnr", "lpips", "tb_train/loss")):
+        raise RuntimeError("the sweep's table rows miss a run or a column")
+
+
+def method_e2e(data_dir, result_dir, steps=50):
+    """Phase 8 (4): the Method's lifecycle with the appearance embedding:
+    setup_train, steps, save, render, optimize_embedding (128 Adam steps
+    through the compositor's backward), export_demo; compositor launches
+    counted."""
+    import torch
+    from gs_init_tpu_torch import kernels
+    from gs_init_tpu_torch.integration.method import GsInitTpuMethod
+    from gs_init_tpu_torch.utils.ply import read_ply_splats
+
+    t0 = time.perf_counter()
+    m = GsInitTpuMethod(data_dir=data_dir, config_overrides=dict(
+        data_factor=1, result_dir=result_dir, max_steps=steps, test_every=4, max_gaussians=4096,
+        pair_capacity=262144, app_opt="true"))
+    kernels.reset_launch_counts()
+    m.setup_train()
+    t1 = time.perf_counter()
+    losses = [m.train_iteration(step)["loss"] for step in range(steps)]
+    ckpt = m.save(os.path.join(result_dir, "method.npz"))
+    item = m.runner.valset[0]
+    h, w = item["image"].shape[:2]
+    out = m.render(item["camtoworld"], item["K"], w, h)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    emb = m.optimize_embedding(item["image"], item["camtoworld"], item["K"])
+    t3 = time.perf_counter()
+    n_demo = len(read_ply_splats(m.export_demo(os.path.join(result_dir, "demo.ply"), options=dict(embedding=emb)))[0])
+    launches = {k: kernels.LAUNCHES[k] for k in ("composite_fwd", "composite_bwd")}
+    n_opt = m.cfg.app_test_opt_steps
+    want = dict(composite_fwd=steps + 1 + n_opt, composite_bwd=steps + n_opt)
+    log(f"  method: built in {t1 - t0:.3f} s; {steps} steps, save and a {w}x{h} render in {t2 - t1:.3f} s, loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; optimize_embedding ({n_opt} Adam steps) {t3 - t2:.3f} s, |embedding| "
+        f"{float(np.linalg.norm(emb)):.4f}; demo PLY {n_demo} splats; launches {json.dumps(launches)} "
+        f"(want {json.dumps(want)})")
+    if not (np.isfinite(losses).all() and np.isfinite(emb).all() and np.isfinite(out["color"]).all()
+            and os.path.exists(ckpt) and n_demo == int(m.runner.gstate.alive.sum())):
+        raise RuntimeError("the Method's lifecycle gave a non-finite value or lost its outputs")
+    if launches != want:
+        raise RuntimeError("the Method's paths did not launch the compositor as counted")
+
+
+def viewer_e2e(data_dir, result_dir, steps=300):
+    """Phase 8 (5): the live viewer on an ephemeral port while the Runner
+    trains on a thread: /status and 640x480 /render requests during
+    training, then a /render equal to Runner.render at the same camera."""
+    import threading
+    import urllib.request
+
+    from gs_init_tpu_torch import kernels
+    from gs_init_tpu_torch.config import Config
+    from gs_init_tpu_torch.datasets.png import decode_png
+    from gs_init_tpu_torch.engine.runner import Runner
+
+    cfg = Config(data_dir=data_dir, data_factor=1, result_dir=result_dir, max_steps=steps, eval_steps=[],
+                 save_steps=[], test_every=4, max_gaussians=4096, pair_capacity=1 << 18, tb_every=100,
+                 disable_viewer=False, port=0)
+    runner = Runner(cfg)
+    port = runner.start_viewer()
+    get = lambda path: urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=60).read()
+    failure = []
+
+    def train():
+        try:
+            runner.train()
+        except Exception as e:  # reported by the main thread
+            failure.append(e)
+
+    kernels.reset_launch_counts()
+    th = threading.Thread(target=train)
+    th.start()
+    steps_seen, render_s, n_render = [], [], 0
+    try:
+        while th.is_alive():
+            steps_seen.append(json.loads(get("/status"))["step"])
+            t0 = time.perf_counter()
+            img = decode_png(get(f"/render?yaw={0.1 * n_render:.2f}&pitch=0.2&w=640&h=480"))
+            render_s.append(time.perf_counter() - t0)
+            n_render += 1
+            if img.shape != (480, 640, 3):
+                raise RuntimeError(f"viewer render of shape {img.shape}")
+        th.join()
+        if failure:
+            raise failure[0]
+        body = get("/render?yaw=0.3&pitch=0.2&radius=1.1&w=640&h=480")
+        c2w, K = runner.viewer.camera(0.3, 0.2, 1.1, 640, 480)
+        color, _, _ = runner.render(c2w, K, 640, 480, render_mode="RGB")
+        same = np.array_equal(decode_png(body), (np.clip(color, 0, 1) * 255).astype(np.uint8))
+        status = json.loads(get("/status"))
+    finally:
+        th.join()
+        runner.viewer.stop()
+    launches = {k: kernels.LAUNCHES[k] for k in ("composite_fwd", "composite_bwd")}
+    want = dict(composite_fwd=steps + len(runner.valset) + n_render + 2, composite_bwd=steps)
+    log(f"  viewer: {n_render} /render (640x480 PNG, median {np.median(render_s) * 1e3:.1f} ms round trip) and "
+        f"/status answered during {steps} train steps (steps seen {steps_seen[:1]}..{steps_seen[-1:]}); final "
+        f"/render equal to Runner.render: {same}; /status after training {json.dumps(status)}; launches "
+        f"{json.dumps(launches)} (want {json.dumps(want)})")
+    if not same or status["step"] != steps - 1 or n_render == 0:
+        raise RuntimeError("the viewer's render or status disagrees with the Runner")
+    if launches != want:
+        raise RuntimeError("the viewer's and the training's launches do not add up")
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -1650,21 +2083,41 @@ def main():
     aux_flagship(dev)
     torch.cuda.empty_cache()
 
-    log("phase 5: the Runner end to end")
+    log(f"phase 5: the Runner end to end ({time.perf_counter() - t_start:.1f} s)")
     runner_e2e()
 
     with tempfile.TemporaryDirectory() as tmp:
         scene, data_dir = clustered_colmap(tmp, 1296, 840, 24, dev)
-        log("phase 6a: monocular-depth init at full width")
+        log(f"phase 6a: monocular-depth init at full width ({time.perf_counter() - t_start:.1f} s)")
         mdi_init_full_width(dev, scene, data_dir)
-        log("phase 6b: the three arms, sfm, monocular_depth and sfm+mdi; sfm without prefetch")
+        log(f"phase 6b: the three arms, sfm, monocular_depth and sfm+mdi; sfm without prefetch "
+            f"({time.perf_counter() - t_start:.1f} s)")
         three_arms(dev)
-        log("phase 6c: the depth networks, card against CPU, at full width, and the Runner's metric3d init")
+        log("phase 6c: the depth networks, card against CPU, at full width, and the Runner's metric3d init "
+            f"({time.perf_counter() - t_start:.1f} s)")
         depth_card_vs_cpu(dev)
         depth_full_width(dev, scene)
         depth_runner_e2e(dev, data_dir)
-    log("phase 7: the trainer entry point, both presets, checkpoints and the eval-only restart")
+        log(f"phase 6d: SAM, card against CPU, ViT-H at 1024, the mask generator and the SAM-segmented init "
+            f"({time.perf_counter() - t_start:.1f} s)")
+        sam_card_vs_cpu(dev)
+        sam_full_width(dev, scene)
+        sam_runner_e2e(dev, scene, data_dir)
+    log(f"phase 7: the trainer entry point, both presets, checkpoints and the eval-only restart "
+        f"({time.perf_counter() - t_start:.1f} s)")
     trainer_entry()
+
+    log(f"phase 8: eval and integration: LPIPS, the Runner's LPIPS and TensorBoard scalars, a sweep, the Method, "
+        f"the live viewer ({time.perf_counter() - t_start:.1f} s)")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(os.path.join(tmp, "ckpt"))
+        write_lpips_weights(os.path.join(tmp, "ckpt"))
+        os.environ["GS_TPU_CHECKPOINT_DIR"] = os.path.join(tmp, "ckpt")
+        lpips_card_vs_cpu(dev)
+        runner_e2e()
+        sweep_e2e(tmp)
+        method_e2e(os.path.join(tmp, "data", "scene"), os.path.join(tmp, "method"))
+        viewer_e2e(os.path.join(tmp, "data", "scene"), os.path.join(tmp, "viewer"))
 
     log(f"total {time.perf_counter() - t_start:.3f} s")
     log(card)

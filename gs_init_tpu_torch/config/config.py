@@ -6,10 +6,10 @@ JAX package's field names and defaults so a configuration carries over.
 ``MCMCStrategyConfig`` too. The port runs both strategies from SfM, random
 or monocular-depth init (any of the five depth networks or the stub
 predictor), with pose / appearance / bilateral-grid optimisation, patch
-crops, checkpoints, PLY export, compression and the profiler window.
-``check_slice`` raises on what is not ported yet (the live viewer,
-multi-device training, SAM and the init-cloud export), naming the queue
-that brings it.
+crops, checkpoints, PLY export, compression, the profiler window, the live
+viewer, SAM segmentation and the init-cloud export. ``check_slice`` raises
+on what is not ported yet (multi-device training), naming the queue that
+brings it.
 
 TPU-only knobs are accepted and have no effect here: the port always uses
 the f32 16-column pair table and f32 gradient sums (``wire8``,
@@ -96,7 +96,6 @@ class SegmentationConfig:
     merge_min_sfm_points: int = 5
     region_margin: float = 10.0  # scaled by max(H, W) / 1297 at use
     propagate_mask: bool = False
-    # SAM settings: accepted, but method="sam" raises (check_slice).
     sam_variant: Literal["vit_b", "vit_l", "vit_h"] = "vit_h"
     sam_img_size: int = 1024
     sam_allow_random_weights: bool = False
@@ -162,7 +161,7 @@ class MonocularDepthInitConfig:
     depth_gradient_threshold: float = 0.1
     include_sfm_points: bool = True
     noise_frac: float = 0.0
-    # PLY export of the init cloud: accepted, but raises (check_slice).
+    # PLY export of the init cloud (pts_only exits after the write).
     pts_only: bool = False
     export_ply: bool = False
     pts_output_dir: Optional[str] = None
@@ -313,18 +312,8 @@ class Config:
             raise ValueError(f"unknown strategy {s!r}")
 
 
-# Monocular-depth-init settings not ported yet: (condition on cfg.mdi,
-# what it selects, the ROADMAP queue entry that ports it).
-_LATER_MDI = (
-    (lambda m: m.alignment.segmentation.method == "sam", "SAM segmentation",
-     "the depth-network queue"),
-    (lambda m: m.export_ply or m.pts_only or m.pts_output_dir or m.pts_output_per_image,
-     "PLY export of the init cloud", "the eval/integration slice"),
-)
-
 # (condition, what it selects, the ROADMAP queue entry that ports it)
 _LATER = (
-    (lambda c: not c.disable_viewer, "the live viewer", "the eval/integration slice"),
     (
         lambda c: c.data_parallel > 1 or c.gaussian_shards > 1 or c.shard_pixels
         or c.mesh not in ("auto", "off", "1x1"),
@@ -339,21 +328,11 @@ def _raise_later(what: str, later: str):
     )
 
 
-def check_mdi(mdi: MonocularDepthInitConfig) -> None:
-    """Raise NotImplementedError on monocular-depth-init settings the port
-    does not run yet."""
-    for cond, what, later in _LATER_MDI:
-        if cond(mdi):
-            _raise_later(what, later)
-
-
 def check_slice(cfg: Config) -> None:
     """Raise NotImplementedError on settings the port does not run yet."""
     for cond, what, later in _LATER:
         if cond(cfg):
             _raise_later(what, later)
-    if cfg.init_type == "monocular_depth":
-        check_mdi(cfg.mdi)
 
 
 def to_dict(cfg) -> dict:

@@ -21,8 +21,9 @@ def _chunk(tag: bytes, data: bytes) -> bytes:
     )
 
 
-def write_png(path: str, img: np.ndarray) -> None:
-    """Write a uint8 [H, W] or [H, W, 3|4] image (filter 0, zlib level 6)."""
+def encode_png(img: np.ndarray) -> bytes:
+    """The PNG bytes of a uint8 [H, W] or [H, W, 3|4] image (filter 0, zlib
+    level 6)."""
     img = np.ascontiguousarray(img, dtype=np.uint8)
     h, w = img.shape[:2]
     c = 1 if img.ndim == 2 else img.shape[2]
@@ -30,19 +31,24 @@ def write_png(path: str, img: np.ndarray) -> None:
     raw = np.concatenate(
         [np.zeros((h, 1), np.uint8), img.reshape(h, w * c)], axis=1
     ).tobytes()
+    return b"".join([
+        _SIG,
+        _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0)),
+        _chunk(b"IDAT", zlib.compress(raw, 6)),
+        _chunk(b"IEND", b""),
+    ])
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """Write a uint8 [H, W] or [H, W, 3|4] image as ``encode_png`` encodes it."""
     with open(path, "wb") as f:
-        f.write(_SIG)
-        f.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0)))
-        f.write(_chunk(b"IDAT", zlib.compress(raw, 6)))
-        f.write(_chunk(b"IEND", b""))
+        f.write(encode_png(img))
 
 
-def read_png(path: str) -> np.ndarray:
-    """Read an 8-bit non-interlaced grey/RGB/RGBA PNG as uint8 [H, W(, C)]."""
-    with open(path, "rb") as f:
-        data = f.read()
+def decode_png(data: bytes, name: str = "PNG data") -> np.ndarray:
+    """Decode an 8-bit non-interlaced grey/RGB/RGBA PNG to uint8 [H, W(, C)]."""
     if data[:8] != _SIG:
-        raise ValueError(f"{path}: not a PNG file")
+        raise ValueError(f"{name}: not a PNG file")
     pos, idat = 8, []
     w = h = c = None
     while pos < len(data):
@@ -53,7 +59,7 @@ def read_png(path: str) -> np.ndarray:
         if tag == b"IHDR":
             w, h, depth, ctype, _, _, interlace = struct.unpack(">IIBBBBB", body)
             if depth != 8 or ctype not in _CHANNELS or interlace:
-                raise ValueError(f"{path}: unsupported PNG (depth {depth}, type {ctype})")
+                raise ValueError(f"{name}: unsupported PNG (depth {depth}, type {ctype})")
             c = _CHANNELS[ctype]
         elif tag == b"IDAT":
             idat.append(body)
@@ -86,3 +92,9 @@ def read_png(path: str) -> np.ndarray:
         prev = cur
     img = out.astype(np.uint8).reshape(h, w, c)
     return img[..., 0] if c == 1 else img
+
+
+def read_png(path: str) -> np.ndarray:
+    """Read an 8-bit non-interlaced grey/RGB/RGBA PNG as uint8 [H, W(, C)]."""
+    with open(path, "rb") as f:
+        return decode_png(f.read(), path)

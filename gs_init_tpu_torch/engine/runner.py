@@ -8,18 +8,23 @@ strategy's relocation and noise; pose / appearance / bilateral-grid groups
 patch crops; batches built ``data_prefetch`` ahead on a thread; pair-
 capacity retuning (grow on overflow, shrink when far too large); ``save``
 / ``load`` of the whole training state in the JAX package's npz layout
-(either package loads the other's checkpoints); ``eval`` with PSNR, SSIM
-and, with the bilateral grid, colour-corrected PSNR; trajectory renders
-as PNG frames; PLY export; splat compression; a ``torch.profiler`` window.
+(either package loads the other's checkpoints); ``eval`` with PSNR, SSIM,
+LPIPS (when ``ops.lpips.lpips_available()`` finds weights) and, with the
+bilateral grid, colour-corrected PSNR; TensorBoard scalars under
+``<result_dir>/tb`` at the JAX Runner's tags and cadence (``train/<k>``,
+``train/num_GS`` and ``train/mem_peak_gb`` every ``tb_every`` steps,
+``<stage>/<k>`` after each eval); the live HTTP viewer (``viewer.py``,
+started by ``train()`` unless ``disable_viewer``); trajectory renders as
+PNG frames; PLY export; splat compression; a ``torch.profiler`` window.
 
-Still raising (``config.check_slice``, naming the later slice): the live
-viewer and multi-device training. LPIPS waits for its weights, and
-TensorBoard scalars are not written (the JSON stats stand in for them).
+Still raising (``config.check_slice``, naming the later slice):
+multi-device training.
 """
 from __future__ import annotations
 
 import json
 import os
+import threading
 import time
 from typing import Dict, List, Optional
 
@@ -32,9 +37,10 @@ from ..datasets.parser import Dataset, Parser
 from ..datasets.png import write_png
 from ..device import generator, resolve_device
 from ..mdi.init import pts_and_rgb_from_monocular_depth
+from ..ops.lpips import lpips, lpips_available
 from ..ops.render import rasterize
 from ..ops.ssim import psnr, ssim
-from ..utils.mem import format_memory_stats
+from ..utils.mem import device_memory_stats, format_memory_stats
 from .appearance import (
     apply_pose_deltas,
     color_correct,
@@ -81,6 +87,9 @@ def retuned_pair_capacity(peak: int, overflow: int, cap: int) -> int:
 
 
 class Runner:
+    train_step: int = -1  # live progress, read by the viewer's /status
+    viewer = None
+
     def __init__(
         self,
         cfg: Config,
@@ -105,7 +114,7 @@ class Runner:
         )
         self.valset = valset or Dataset(self.parser, "val", cache_bytes=cache_bytes)
         self.scene_scale = self.parser.scene_scale * 1.1 * cfg.global_scale
-        for sub in ("ckpts", "stats", "renders"):
+        for sub in ("ckpts", "stats", "renders", "tb"):
             os.makedirs(os.path.join(cfg.result_dir, sub), exist_ok=True)
         self.height, self.width = self.trainset[0]["image"].shape[:2]
 
@@ -129,6 +138,10 @@ class Runner:
         self._prefetcher = None
         self._profiler = None
         self._phase_times = {"data": 0.0, "step": 0.0}
+        self._writer = None
+        # Held by each train iteration and by the viewer's renders: a step
+        # updates the parameters in place, so a render must not overlap one.
+        self.lock = threading.RLock()
         with open(os.path.join(cfg.result_dir, "cfg.json"), "w") as f:
             json.dump(to_dict(cfg), f, indent=2, default=str)
 
@@ -190,7 +203,20 @@ class Runner:
                 n_images, std=cfg.pose_noise, generator=generator(cfg.seed + 2, dev), device=dev
             )
 
+    @property
+    def writer(self):
+        """The TensorBoard writer, built at first use."""
+        if self._writer is None:
+            from ..utils.tb import SummaryWriter
+
+            self._writer = SummaryWriter(os.path.join(self.cfg.result_dir, "tb"))
+        return self._writer
+
     # -------------------------------------------------------------- train
+
+    def setup_train(self):
+        """Nothing to warm: the eager step builds no program ahead."""
+        return self
 
     def _next_batch(self) -> Batch:
         ids = []
@@ -258,6 +284,10 @@ class Runner:
         cfg.pair_capacity = new_cap
 
     def train_iteration(self, step: int) -> Dict[str, torch.Tensor]:
+        with self.lock:
+            return self._train_iteration(step)
+
+    def _train_iteration(self, step: int) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
         if cfg.profile_start >= 0 and step == cfg.profile_start:
             self._start_profiler()
@@ -323,8 +353,18 @@ class Runner:
         self._profiler = None
         print(f"[profiler] trace written to {out}")
 
+    def start_viewer(self) -> int:
+        """Serve the live HTTP viewer on a daemon thread (``viewer.py``);
+        returns the bound port."""
+        from ..viewer import ViewerServer
+
+        self.viewer = ViewerServer(self, port=self.cfg.port)
+        return self.viewer.start()
+
     def train(self) -> dict:
         cfg = self.cfg
+        if not cfg.disable_viewer and self.viewer is None:
+            self.start_viewer()
         if cfg.data_prefetch > 0:
             from ..datasets.prefetch import BatchPrefetcher
 
@@ -348,6 +388,7 @@ class Runner:
         t0 = time.time()
         last = {}
         for step in range(cfg.max_steps):
+            self.train_step = step
             metrics = self.train_iteration(step)
             # Growth after a refine or relocation shows as overflow on the
             # step after it: one host sync per refine cycle catches it.
@@ -362,6 +403,13 @@ class Runner:
                 self._pairs_max = max(self._pairs_max, int(last["pairs"]) + int(last["overflow"]))
                 if last["overflow"] > 0:
                     self._maybe_retune_capacity(metrics, step)
+                w = self.writer
+                for k, v in last.items():
+                    w.add_scalar(f"train/{k}", v, step)
+                w.add_scalar("train/num_GS", num_alive(self.gstate), step)
+                mem_stats = device_memory_stats(self.device)
+                if mem_stats:
+                    w.add_scalar("train/mem_peak_gb", mem_stats["peak_bytes_in_use"] / 1024**3, step)
                 mem = format_memory_stats(self.device) if self.device.type == "cuda" else ""
                 print(
                     f"step {step}: loss={last['loss']:.4f} "
@@ -383,7 +431,11 @@ class Runner:
             **last,
         )
         if self.device.type == "cuda":
+            from .. import kernels
+
             stats["mem_peak_gb"] = torch.cuda.max_memory_allocated(self.device) / 1024**3
+            # The process's launches of each hand-written kernel so far.
+            stats["kernel_launches"] = dict(kernels.LAUNCHES)
             print(f"[runner] peak device memory {stats['mem_peak_gb']:.3f} GB")
         with open(os.path.join(cfg.result_dir, "stats", "train_final.json"), "w") as f:
             json.dump(stats, f, indent=2)
@@ -422,7 +474,8 @@ class Runner:
 
     def eval(self, step: int, stage: str = "val") -> Dict[str, float]:
         cfg = self.cfg
-        psnrs, ssims, times, cc_psnrs = [], [], [], []
+        psnrs, ssims, times, cc_psnrs, lpipss = [], [], [], [], []
+        use_lpips = lpips_available()
         for i in range(len(self.valset)):
             item = self.valset[i]
             h, w = item["image"].shape[:2]
@@ -436,6 +489,8 @@ class Runner:
             if cfg.use_bilateral_grid:
                 cc = color_correct(c.to(self.device), gt.to(self.device)).cpu()
                 cc_psnrs.append(float(psnr(cc, gt)))
+            if use_lpips:
+                lpipss.append(float(lpips(c.to(self.device), gt.to(self.device))))
             if i < 4 or cfg.save_predictions:
                 canvas = np.concatenate([item["image"], color], axis=1)
                 write_png(
@@ -450,8 +505,13 @@ class Runner:
         )
         if cc_psnrs:
             stats["cc_psnr"] = float(np.mean(cc_psnrs))
+        if lpipss:
+            stats["lpips"] = float(np.mean(lpipss))
         with open(os.path.join(cfg.result_dir, "stats", f"{stage}_step{step}.json"), "w") as f:
             json.dump(stats, f, indent=2)
+        w = self.writer
+        for k, v in stats.items():
+            w.add_scalar(f"{stage}/{k}", v, step)
         print(f"eval step {step}: PSNR={stats['psnr']:.3f} SSIM={stats['ssim']:.4f}")
         return stats
 

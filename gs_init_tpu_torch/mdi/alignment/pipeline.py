@@ -1,8 +1,9 @@
 """Depth alignment pipeline: optional segmentation, then per-region
 alignment — port of ``gs_init_tpu/mdi/alignment/pipeline.py``.
 
-With no segmenter the whole image is one region. With SLIC, regions are
-merged (weak borders, few SfM points), SfM points in a margin around the
+With no segmenter the whole image is one region. With SLIC or SAM
+(``mdi/segmentation_sam.py``, on the colour-mapped depth and, with
+``sam_use_normals``, the normal map), regions are merged (weak borders, few SfM points), SfM points in a margin around the
 borders are left out of the fits, and each region is aligned on its own.
 The output starts at the INVALID sentinel (-42) and is written per region;
 a region with too few points stays invalid and is masked out downstream.
@@ -59,6 +60,7 @@ def align_depth(
     generator: Optional[torch.Generator] = None,  # RANSAC draws, region after region
     rbf_seed: int = 0,  # seeds the max_rbf_points subsets
     device=None,
+    normals: Optional[np.ndarray] = None,  # [H, W, 3], for SAM's sam_use_normals
 ):
     """Returns (aligned depth [H, W], mask [H, W]) as numpy."""
     h, w = pred_depth.shape
@@ -74,15 +76,20 @@ def align_depth(
             pred_depth, pred_at, sfm_depth, sfm_pix, valid, acfg.method, **region
         )
         return aligned, np.asarray(pred_mask).copy()
-    if seg.method != "slic":
-        raise NotImplementedError(
-            f"segmenter {seg.method!r} is not ported to gs_init_tpu_torch yet "
-            "(the depth-network slice in ROADMAP.md); use 'slic'"
+    if seg.method == "slic":
+        labels = slic_depth(
+            pred_depth, np.asarray(pred_mask),
+            n_segments=seg.slic_n_segments, compactness=seg.slic_compactness,
         )
-    labels = slic_depth(
-        pred_depth, np.asarray(pred_mask),
-        n_segments=seg.slic_n_segments, compactness=seg.slic_compactness,
-    )
+    elif seg.method == "sam":
+        from ..segmentation_sam import segment_depth_sam
+
+        labels = segment_depth_sam(
+            pred_depth, np.asarray(pred_mask), normals, seg,
+            allow_random_weights=seg.sam_allow_random_weights, device=device,
+        )
+    else:
+        raise NotImplementedError(f"unknown segmenter {seg.method!r}")
     labels = merge_regions(
         labels, pred_depth, sfm_pix[valid],
         gradient_threshold=seg.merge_gradient_threshold, min_sfm_points=seg.merge_min_sfm_points,

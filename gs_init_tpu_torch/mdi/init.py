@@ -6,7 +6,12 @@ combine the masks and unproject the kept pixels to world space with their
 colours. Images whose SfM points project validly below
 ``min_valid_sfm_fraction`` are skipped; if every image is, the init raises
 ``LowDepthAlignmentConfidenceError``. Then the SfM points are added
-(``include_sfm_points``) and the cloud is postprocessed.
+(``include_sfm_points``) and the cloud is postprocessed. With
+``export_ply``, ``pts_only`` or ``pts_output_dir`` the final cloud is
+written to ``<pts_output_dir or result_dir>/mdi_init_points.ply``
+(``pts_only`` then exits with ``SystemExit(0)``); with
+``pts_output_per_image`` each image's points go to ``mdi_<image>.ply``
+there too.
 
 The per-image alignment, masks and unprojection run on ``device`` (the
 card by default) and the cloud stays there until the end; segmentation,
@@ -25,10 +30,10 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import check_mdi
 from ..datasets.parser import Dataset
 from ..device import generator as make_generator
 from ..device import resolve_device
+from ..utils.ply import write_ply_points
 from .alignment.lstsqrs import weighted_scale_shift
 from .alignment.pipeline import align_depth
 from .points_from_depth import masks_and_unproject, points_from_depth, project_sfm_points
@@ -109,7 +114,6 @@ def pts_and_rgb_from_monocular_depth(
     are a least-squares fit of the aligned depth on the prediction.
     Returns (points [N, 3], colours [N, 3]), float32 numpy."""
     mdi = cfg.mdi
-    check_mdi(mdi)
     dev = resolve_device(device)
     model = model or pick_model(cfg, device=dev)
     gen = generator if generator is not None else make_generator(cfg.seed, dev)
@@ -139,7 +143,7 @@ def pts_and_rgb_from_monocular_depth(
     for start in range(0, len(trainset), bs):
         items = [trainset[i] for i in range(start, min(start + bs, len(trainset)))]
         preds = _predict_or_cached(cfg, model, items)
-        for it, (depth, mask, _normal) in zip(items, preds):
+        for it, (depth, mask, normal) in zip(items, preds):
             t0 = time.perf_counter()
             h, w = it["image"].shape[:2]
             idx = parser.point_indices.get(it["image_name"], np.empty(0, np.int64))
@@ -166,7 +170,7 @@ def pts_and_rgb_from_monocular_depth(
                 aligned, amask = align_depth(
                     np.asarray(depth, np.float32), np.asarray(mask),
                     pix.cpu().numpy(), gt_z.cpu().numpy(), ok.cpu().numpy(), mdi.alignment,
-                    generator=gen, rbf_seed=rbf_seed, device=dev,
+                    generator=gen, rbf_seed=rbf_seed, device=dev, normals=normal,
                 )
                 aligned_t = T(aligned)
                 world, m = masks_and_unproject(
@@ -208,6 +212,11 @@ def pts_and_rgb_from_monocular_depth(
                 pts = pts + T(noise)
             all_pts.append(pts)
             all_rgbs.append(rgb)
+            if mdi.pts_output_per_image:
+                d = mdi.pts_output_dir or cfg.result_dir
+                os.makedirs(d, exist_ok=True)
+                stem = os.path.splitext(it["image_name"])[0].replace("/", "_")
+                write_ply_points(os.path.join(d, f"mdi_{stem}.ply"), pts.cpu().numpy(), rgb.cpu().numpy())
             if per_image is not None:
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
@@ -233,7 +242,16 @@ def pts_and_rgb_from_monocular_depth(
     train = [parser.images[int(i)] for i in parser.split_indices("train")]
     vms = np.stack([np.linalg.inv(im.camtoworld) for im in train])
     Kmats = np.stack([im.K for im in train])
-    return postprocess_point_cloud(
+    pts, rgbs = postprocess_point_cloud(
         cfg, pts, rgbs, vms, Kmats, [im.width for im in train], [im.height for im in train],
         device=dev,
     )
+    if mdi.export_ply or mdi.pts_only or mdi.pts_output_dir:
+        out_dir = mdi.pts_output_dir or cfg.result_dir
+        os.makedirs(out_dir, exist_ok=True)
+        out = os.path.join(out_dir, "mdi_init_points.ply")
+        write_ply_points(out, pts, rgbs)
+        _LOGGER.info("exported init point cloud to %s", out)
+        if mdi.pts_only:
+            raise SystemExit(0)
+    return pts, rgbs

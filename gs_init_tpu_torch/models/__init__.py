@@ -1,3 +1,3 @@
-"""The depth networks — port of ``gs_init_tpu/models/`` (all but SAM): the
-DINOv2 ViT, the DPT head, Metric3D's RAFT-DPT decoder, MoGe-2, UniDepth-v2
-and DepthPro. Plain PyTorch: the JAX package has no Pallas kernel in them."""
+"""The networks — port of ``gs_init_tpu/models/``: the DINOv2 ViT, the DPT
+head, Metric3D's RAFT-DPT decoder, MoGe-2, UniDepth-v2, DepthPro and SAM.
+Plain PyTorch: the JAX package has no Pallas kernel in them."""

@@ -11,10 +11,12 @@ loads a checkpoint (either package's), evaluates it and renders the
 trajectory instead of training. It runs on the card; ``main(argv,
 device="cpu")`` runs it on the CPU (the tests do).
 
-Still raising, each naming the slice that ports it: a multi-host launch
-(``COORDINATOR_ADDRESS`` or ``JAX_COORDINATOR_ADDRESS`` set) and
-multi-device settings (the multi-GPU slice), the live viewer
-(``--disable_viewer=false``), the depth networks and SAM (``config.check_slice``).
+With ``--disable_viewer=false`` the live viewer serves during training and,
+unless ``--non_blocking_viewer``, stays up after it until Ctrl+C.
+
+Still raising, naming the multi-GPU slice that ports them: a multi-host
+launch (``COORDINATOR_ADDRESS`` or ``JAX_COORDINATOR_ADDRESS`` set) and
+multi-device settings (``config.check_slice``).
 """
 from __future__ import annotations
 
@@ -49,6 +51,15 @@ def run_with_config(cfg: Config, device=None):
         runner.render_traj(step)
     else:
         runner.train()
+    if not cfg.disable_viewer and not cfg.non_blocking_viewer:
+        import time
+
+        print("Viewer running... Ctrl+C to exit.")
+        try:
+            while True:
+                time.sleep(3600)
+        except KeyboardInterrupt:
+            pass
     return runner
 
 

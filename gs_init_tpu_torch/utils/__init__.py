@@ -1,1 +1,1 @@
-"""Host-side utilities of the port: PLY and compressed-splat IO, memory stats."""
+"""Host-side utilities of the port: PLY and compressed-splat IO, memory stats, TensorBoard event files."""

@@ -180,32 +180,91 @@ def test_runner_initial_state_matches_jax(colmap_scene, tmp_path):
     assert np.isfinite(losses).all()
 
 
-def test_monocular_depth_settings_the_port_refuses(colmap_scene, tmp_path):
+def test_monocular_depth_settings_the_port_refuses(colmap_scene, tmp_path, monkeypatch):
+    """Every monocular-depth setting runs now: SAM segmentation (a Runner
+    on random weights of a narrow SAM, through to a train step), the
+    init-cloud export flags and every depth network. Multi-device training
+    is still refused, with or without the mdi init."""
+    from gs_init_tpu_torch.mdi import segmentation_sam
+    from gs_init_tpu_torch.mdi.predictors import sam_convert
+
     data_dir, _ = colmap_scene
 
     def cfg(**mdi):
-        c = Config(data_dir=data_dir, init_type="monocular_depth")
+        c = Config(data_dir=data_dir, data_factor=1, test_every=4, init_type="monocular_depth",
+                   result_dir=str(tmp_path / "res"), max_steps=1, eval_steps=[], save_steps=[])
         c.mdi.predictor = "stub"
         for k, v in mdi.items():
             setattr(c.mdi, k, v)
         return c
 
     check_slice(cfg())
-    for mdi, what in (
-        (dict(export_ply=True), "PLY export"),
-        (dict(pts_output_dir=str(tmp_path)), "PLY export"),
-    ):
-        with pytest.raises(NotImplementedError, match=what):
-            check_slice(cfg(**mdi))
-    c = cfg()
-    c.mdi.alignment.segmentation.method = "sam"
-    with pytest.raises(NotImplementedError, match="SAM"):
-        Runner(c, device="cpu")
+    for mdi in (dict(export_ply=True), dict(pts_only=True), dict(pts_output_dir=str(tmp_path)),
+                dict(pts_output_per_image=True)):
+        check_slice(cfg(**mdi))
     for ported in ("metric3d", "depth_anything_v2", "moge", "unidepth", "depth_pro"):
         check_slice(cfg(predictor=ported))  # every depth network runs; metric3d is the default
-    c = cfg(export_ply=True)
-    c.init_type = "sfm"
-    check_slice(c)  # mdi settings are not read unless the init uses them
+    c = cfg(use_cache=False)
+    seg = c.mdi.alignment.segmentation
+    seg.method, seg.sam_variant, seg.sam_img_size = "sam", "tiny", 128
+    seg.sam_allow_random_weights = True
+    check_slice(c)
+    monkeypatch.setenv("GS_TPU_CHECKPOINT_DIR", str(tmp_path / "no_weights"))
+    monkeypatch.setitem(sam_convert.SAM_VARIANTS, "tiny",
+                        dict(dim=32, depth=2, num_heads=2, global_attn_indexes=(1,)))
+    segmentation_sam._cached_generator.cache_clear()
+    try:
+        runner = Runner(c, device="cpu")
+    finally:
+        segmentation_sam._cached_generator.cache_clear()
+    assert int(runner.gstate.alive.sum()) > len(runner.parser.points)
+    assert np.isfinite(float(runner.train_iteration(0)["loss"]))
+    c.data_parallel = 2
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        Runner(c, device="cpu")
+
+
+def test_init_cloud_export_matches_jax(colmap_scene, tmp_path):
+    """export_ply and pts_output_per_image write the JAX package's files:
+    the same names, point counts and colours, points within 2e-4 of the
+    cloud's extent (as test_pts_and_rgb_matches_jax holds the cloud)."""
+    from gs_init_tpu.datasets.parser import Parser as JParser
+    from gs_init_tpu_torch.utils.ply import read_ply_points
+
+    data_dir, scene = colmap_scene
+    jcfg, pcfg = _configs(data_dir, tmp_path, "ransac")
+    for c, sub in ((jcfg, "jax"), (pcfg, "port")):
+        c.mdi.export_ply = True
+        c.mdi.pts_output_per_image = True
+        c.mdi.pts_output_dir = str(tmp_path / sub)
+    jparser, pparser = JParser(data_dir, factor=1, test_every=4), Parser(data_dir, factor=1, test_every=4)
+    j_pts_and_rgb(jcfg, jparser, model=_oracle_stub(JStub, scene, jparser))
+    pts, rgb = pts_and_rgb_from_monocular_depth(pcfg, pparser, model=_oracle_stub(StubPredictor, scene, pparser),
+                                                device=CPU)
+    names = sorted(os.listdir(tmp_path / "port"))
+    assert names == sorted(os.listdir(tmp_path / "jax"))
+    assert "mdi_init_points.ply" in names and len(names) == len(pparser.split_indices("train")) + 1
+    for name in names:
+        (pp, pc), (jp, jc) = (read_ply_points(str(tmp_path / sub / name)) for sub in ("port", "jax"))
+        assert pp.shape == jp.shape and len(pp) > 0
+        np.testing.assert_array_equal(pc, jc)
+        extent = float(np.abs(jp).max())
+        np.testing.assert_allclose(pp / extent, jp / extent, atol=2e-4, err_msg=name)
+    final = read_ply_points(str(tmp_path / "port" / "mdi_init_points.ply"))
+    np.testing.assert_array_equal(final[0], pts)
+    np.testing.assert_array_equal(np.round(final[1] * 255), (np.clip(rgb, 0, 1) * 255).astype(np.uint8))
+
+
+def test_pts_only_exits_after_the_write(colmap_scene, tmp_path):
+    data_dir, scene = colmap_scene
+    _, pcfg = _configs(data_dir, tmp_path, "ransac")
+    pcfg.mdi.pts_only = True
+    parser = Parser(data_dir, factor=1, test_every=4)
+    with pytest.raises(SystemExit) as exit_info:
+        pts_and_rgb_from_monocular_depth(pcfg, parser, model=_oracle_stub(StubPredictor, scene, parser),
+                                         device=CPU)
+    assert exit_info.value.code == 0
+    assert os.path.getsize(tmp_path / "res" / "mdi_init_points.ply") > 0
 
 
 def test_runner_and_init_default_to_cuda(colmap_scene, monkeypatch):

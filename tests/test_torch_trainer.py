@@ -407,7 +407,7 @@ def test_prefetch_raises_the_worker_error_and_joins():
     "setting",
     [dict(strategy=MCMCStrategyConfig()), dict(pose_opt=True), dict(pose_noise=0.1), dict(app_opt=True),
      dict(use_bilateral_grid=True), dict(patch_size=16), dict(ckpt=["x.npz"]), dict(save_ply=True),
-     dict(compression="quantized"), dict(profile_start=3)],
+     dict(compression="quantized"), dict(profile_start=3), dict(disable_viewer=False)],
     ids=lambda d: next(iter(d)),
 )
 def test_check_slice_lets_the_ported_settings_through(setting):
@@ -418,7 +418,7 @@ def test_check_slice_lets_the_ported_settings_through(setting):
 
 @pytest.mark.parametrize(
     "setting,later",
-    [(dict(disable_viewer=False), "eval/integration"), (dict(data_parallel=2), "multi-GPU"),
+    [(dict(data_parallel=2), "multi-GPU"),
      (dict(gaussian_shards=2), "multi-GPU"), (dict(shard_pixels=True), "multi-GPU"),
      (dict(mesh="2x1"), "multi-GPU")],
     ids=lambda x: str(next(iter(x))) if isinstance(x, dict) else x,
