@@ -3,6 +3,7 @@
 kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py   # from the repo root, on a machine with one card
+    python3 chip_smoke.py --phase 9   # phases 1 and 9 only, without the result lines
 
 Phases, each fatal: an exception ends the script with a non-zero code and
 no result line.
@@ -109,10 +110,31 @@ no result line.
    an ephemeral port while the Runner trains 300 steps on a thread, its
    last /render equal to Runner.render. Every path's compositor launches
    are counted and must match its steps and renders.
+9. Multi-GPU (parallel/). The card's machine has one H100, so times here
+   are shared-card figures, not scaling. (a) A one-rank NCCL group: the
+   sharded and band steps on mesh 1x1 at the flagship (phase 3's cloud
+   with anisotropic scales, step 5) against make_train_step from the same
+   state, one K1 and one K2 launch each, then each timed beside the plain
+   step. (b) Four processes sharing cuda:0 over gloo: meshes 2x1 cameras
+   (batch 2), 1x2 gaussians, 2x2 (batch 2), 2x1 and 2x2 bands (batch 1),
+   each step against the one-rank step on the card and against its
+   witness (the same split of the sums computed by one-rank steps in one
+   process), one K1 and one K2 launch per rank per step, the pair-pixels
+   outside the pair bounds of each band (must be 0); per rank the step,
+   all-gather and gradient all-reduce times and peak memory. (c)
+   trainer.main in two processes launched as the JAX trainer's
+   (COORDINATOR_ADDRESS), on phase 5's scene for 300 steps, 2x1 cameras
+   (batch 2) and 2x1 bands (batch 1), each beside the one-rank run: the
+   loss at every step before the first refine against the one-rank run's
+   (CURVE_RTOL over the first 12, PRE_REFINE_RTOL to step 99), eval PSNR
+   rising, rank 0's npz restarting eval-only on one device to the same
+   PSNR, the sharded checkpoint restoring onto one rank equal to the npz. (d) SIFT descriptors and the image filters on one of
+   phase 6a's 1296x840 images, card against CPU.
 
 The line before the last lists the kernels as JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
+import contextlib
 import json
 import os
 import subprocess
@@ -2030,6 +2052,660 @@ def viewer_e2e(data_dir, result_dir, steps=300):
         raise RuntimeError("the viewer's and the training's launches do not add up")
 
 
+# ------------------------------------------------------------------ phase 9
+# Multi-GPU. The card's machine has one H100: (a) runs a one-rank NCCL group
+# on it; (b) and (c) run several ranks that share cuda:0 over gloo (NCCL
+# refuses two ranks of one communicator on one device). Their times are
+# shared-card figures: they show the sharded paths running on the card at
+# full width, not scaling.
+
+# (a) One rank's sharded and band steps against make_train_step from the
+# same state: K2's float atomics order each gaussian's sums, so gradients
+# agree to rounding and Adam turns a sign flip of a near-zero gradient into
+# up to 2 lr. Loss, first moments and grad2d within MESH1_RTOL of each
+# leaf's max |value|; each parameter within MESH1_RTOL of its leaf's max
+# plus lr x min(2, 2 MESH1_RTOL max|g| / |g|), g the reference gradient
+# (the bound of tests/test_torch_train_step.py).
+MESH1_RTOL = 1e-6
+# (b) Ranks sharing cuda:0, at the JAX mesh tests' 1e-5 (tests/test_
+# parallel.py:125, restated relative to each leaf's max). Where cameras or
+# bands split, each gaussian's gradient is summed in another order (one
+# sum per camera or band, then the sum over "data"), and gradients that
+# are sums of large cancelling terms move by more than 1e-5 of their
+# leaf's max. So each mesh is held to its witness, the same split computed
+# by one-rank steps in one process (``witnesses``): first moments and
+# grad2d within MESHN_RTOL of each leaf's max. Against the one-rank step:
+# the loss within MESHN_RTOL relative, and the parameters by the Adam
+# bound at MESHN_RTOL plus the witness's own gap to that step. The 1x2
+# mesh splits no sum: its witness is the one-rank step itself.
+MESHN_RTOL = 1e-5
+# (c) The trainer's loss at every step before the first refine (step 100)
+# against the one-rank run: over the first CURVE_STEPS steps within
+# CURVE_RTOL (tests/test_band_shard.py:172-174 holds 12); to step 99
+# within PRE_REFINE_RTOL. Adam turns the split's rounding into whole steps
+# of near-zero gradients, and the gap grows with the steps: at every 4th
+# step to 96 it reached 8.4e-4 and 3.2e-4 in two runs of this phase
+# (NVIDIA H100 80GB HBM3, 700 W); PRE_REFINE_RTOL is 2.4x the larger.
+CURVE_RTOL = 1e-4
+CURVE_STEPS = 12
+PRE_REFINE_RTOL = 2e-3
+# (d) Descriptors and image filters on the card against the CPU, within
+# LEFTOVER_RTOL of each output's max |value| (f32 sums in other orders).
+LEFTOVER_RTOL = 1e-5
+MESHES_9B = (  # (name, n_data, n_gauss, bands, batch, witness)
+    ("2x1 cameras", 2, 1, False, 2, "cameras"), ("1x2 gaussians", 1, 2, False, 1, None),
+    ("2x2", 2, 2, False, 2, "cameras"), ("2x1 bands", 2, 1, True, 1, "bands"),
+    ("2x2 bands", 2, 2, True, 1, "bands"),
+)
+
+
+def free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def mesh_scenario(dev, path, n=300_000, cap=393_216, width=1296, height=840, step=5):
+    """Phase 9's scenario: phase 3's flagship cloud and kNN init with
+    anisotropic scales (as phase 2's step: every quaternion gets a real
+    gradient), two cameras with random targets, step 5. Writes the initial
+    state, the batch, the configuration and the one-rank step's results at
+    batch 2 and 1 (make_train_step on the card) to `path` (npz)."""
+    import torch
+    from gs_init_tpu_torch.datasets.synthetic import look_at
+    from gs_init_tpu_torch.device import generator
+    from gs_init_tpu_torch.engine.params import PARAM_NAMES, init_from_points
+    from gs_init_tpu_torch.engine.runner import snug_pair_capacity
+
+    rng = np.random.default_rng(0)
+    pts = np.stack(
+        [rng.uniform(-3, 3, n), rng.uniform(-2, 2, n), rng.uniform(-1, 6, n)], -1
+    ).astype(np.float32)
+    rgbs = rng.uniform(0, 1, (n, 3)).astype(np.float32)
+    g = init_from_points(torch.as_tensor(pts, device=dev), torch.as_tensor(rgbs, device=dev), cap, 3,
+                         generator=generator(0, dev))
+    data = {f"params/{k}": getattr(g.params, k).cpu().numpy() for k in PARAM_NAMES}
+    data["params/scales"] = data["params/scales"] + rng.normal(0, 0.3, (cap, 3)).astype(np.float32)
+    data["alive"] = g.alive.cpu().numpy()
+    f = 0.85 * width
+    K = np.array([[f, 0, width / 2], [0, f, height / 2], [0, 0, 1]], np.float32)
+    data["camtoworlds"] = np.stack([look_at(np.array(e), np.zeros(3)) for e in
+                                    ([0.0, 0.0, -8.0], [1.5, 0.5, -7.5])]).astype(np.float32)
+    data["Ks"] = np.stack([K, K])
+    data["pixels"] = rng.uniform(0, 1, (2, height, width, 3)).astype(np.float32)
+    data["image_ids"] = np.arange(2)
+    data["meta"] = np.array([width, height, step, cap])
+    data["pair_capacity"] = np.array(1 << 22)
+    m = mesh_reference(data, dev, batch=2, quiet=True)
+    data["pair_capacity"] = np.array(snug_pair_capacity(int(m["pairs"]) + int(m["overflow"])))
+    for b in (2, 1):
+        for k, v in mesh_reference(data, dev, batch=b).items():
+            data[f"ref{b}/{k}"] = v
+    np.savez(path, **data)
+    return data
+
+
+def mesh_config(data):
+    from gs_init_tpu_torch.trainer import build_presets
+
+    cfg = build_presets()["default"]
+    cfg.max_steps, cfg.max_gaussians = 30_000, int(data["meta"][3])
+    cfg.pair_capacity = int(data["pair_capacity"])
+    return cfg
+
+
+def mesh_inputs(data, dev, batch):
+    """State, Adam, statistics and the first `batch` cameras on `dev`."""
+    import torch
+    from gs_init_tpu_torch.engine import optim
+    from gs_init_tpu_torch.engine.params import PARAM_NAMES, state_from_numpy
+    from gs_init_tpu_torch.engine.strategy import default as dstrat
+    from gs_init_tpu_torch.engine.train_step import Batch
+
+    g = state_from_numpy({k: data[f"params/{k}"] for k in PARAM_NAMES}, data["alive"], dev)
+    T = lambda k: torch.as_tensor(data[k][:batch], device=dev)
+    b = Batch(camtoworlds=T("camtoworlds"), Ks=T("Ks"), pixels=T("pixels"), image_ids=T("image_ids").long())
+    return g, optim.init_adam_state(g.params), dstrat.init_state(g.alive.shape[0], dev), b
+
+
+def step_outputs(g, a, s, m):
+    from gs_init_tpu_torch.engine.params import PARAM_NAMES
+
+    n = lambda x: x.detach().cpu().numpy()
+    out = {f"params/{k}": n(getattr(g.params, k)) for k in PARAM_NAMES}
+    out.update({f"mu/{k}": n(getattr(a.mu, k)) for k in PARAM_NAMES})
+    out.update(grad2d=n(s.grad2d), loss=n(m["loss"]), pairs=n(m["pairs"]), overflow=n(m["overflow"]))
+    return out
+
+
+def mesh_reference(data, dev, batch, quiet=False, rows=None):
+    """make_train_step once on the card from the scenario's state (its
+    first `batch` cameras). With `rows`, a slice of image rows, the
+    sampling mask lets only those pixels pass a gradient, and the result
+    also holds the screen-space gradients that the step hands the
+    statistics ("stats") and the radii, as tensors."""
+    import torch
+    from gs_init_tpu_torch.engine import optim
+    from gs_init_tpu_torch.engine.params import AuxParams
+    from gs_init_tpu_torch.engine.strategy import default as dstrat
+    from gs_init_tpu_torch.engine.train_step import init_aux_opt, make_train_step
+
+    width, height, step, _ = (int(x) for x in data["meta"])
+    cfg = mesh_config(data)
+    g, a, s, b = mesh_inputs(data, dev, batch)
+    seen, update = {}, dstrat.update_state
+    if rows is not None:
+        b.sampling_mask = torch.zeros(b.pixels.shape[:3] + (1,), device=dev)
+        b.sampling_mask[:, rows] = 1.0
+
+        def tap(st, grads, radii, w, h):
+            seen.update(stats=grads.detach().clone(), radii=radii.clone())
+            return update(st, grads, radii, w, h)
+
+        dstrat.update_state = tap
+    try:
+        g, a, s, _, _, m = make_train_step(cfg, optim.make_adam_config(cfg, 4.0), width, height)(
+            g, a, s, AuxParams(), init_aux_opt(AuxParams()), b, step
+        )
+    finally:
+        dstrat.update_state = update
+    if not quiet and int(m["overflow"]):
+        raise RuntimeError("phase 9: the reference step overflowed its pair table")
+    return {**step_outputs(g, a, s, m), **seen}
+
+
+def leaf_rel(a, b):
+    return float(np.abs(a - b).max() / max(float(np.abs(b).max()), 1e-30))
+
+
+def moment_errors(got, want):
+    """Max error / leaf max of the first moments (worst leaf) and grad2d."""
+    from gs_init_tpu_torch.engine.params import PARAM_NAMES
+
+    return dict(mu=max(leaf_rel(got[f"mu/{k}"], want[f"mu/{k}"]) for k in PARAM_NAMES),
+                grad2d=leaf_rel(got["grad2d"], want["grad2d"]))
+
+
+def mesh_errors(got, ref, rtol):
+    """Max error / leaf max of the loss, first moments, grad2d and the
+    parameters (raw), and the parameters' worst excess over the Adam
+    bound at `rtol` (<= 0 holds)."""
+    from gs_init_tpu_torch.engine import optim
+    from gs_init_tpu_torch.engine.params import PARAM_NAMES
+
+    cfg = mesh_config({k: ref[k] for k in ("meta", "pair_capacity")})
+    acfg = optim.make_adam_config(cfg, 4.0)
+    step = int(ref["meta"][2])
+    err = dict(loss=leaf_rel(got["loss"], ref["loss"]), **moment_errors(got, ref),
+               params=max(leaf_rel(got[f"params/{k}"], ref[f"params/{k}"]) for k in PARAM_NAMES))
+    excess = 0.0
+    for k in PARAM_NAMES:
+        lr = acfg.lrs[k] * (acfg.means_decay_gamma ** step if k == "means" else 1.0)
+        p = ref[f"params/{k}"]
+        gabs = np.abs(ref[f"mu/{k}"]) / (1 - acfg.b1)
+        allowed = rtol * np.abs(p).max() + lr * np.minimum(2.0, 2 * rtol * gabs.max() / np.maximum(gabs, 1e-30))
+        excess = max(excess, float((np.abs(got[f"params/{k}"] - p) - allowed).max()))
+    err["adam_excess"] = excess
+    return err
+
+
+def mesh_ok(err, rtol):
+    return max(err["loss"], err["mu"], err["grad2d"]) <= rtol and err["adam_excess"] <= 0.0
+
+
+def witnesses(dev, data, path, two_bands):
+    """Each split of phase 9 (b) computed by one-rank steps on the card in
+    one process, added to the scenario's npz at `path`. "cameras": the
+    two cameras' batch-1 steps, first moments averaged and grad2d summed
+    (the batch-2 step's sums split by camera, as the data axis splits
+    them). "bands": `two_bands`, the band step on a one-rank mesh with two
+    bands a rank (the 2x1 band mesh's arithmetic: its band frames and its
+    split sums). Logs each witness's gap to the one-rank step (first
+    moments and grad2d, of each leaf's max), and the band split's alone:
+    two batch-1 steps whose sampling masks each pass the gradient of one
+    band's rows, first moments summed, grad2d from the sum of their
+    screen-space gradients."""
+    from gs_init_tpu_torch.engine.params import PARAM_NAMES
+    from gs_init_tpu_torch.engine.strategy import default as dstrat
+    from gs_init_tpu_torch.parallel.shard import band_height
+
+    width, height, _, cap = (int(x) for x in data["meta"])
+    cam1 = dict(data)
+    for k in ("camtoworlds", "Ks", "pixels", "image_ids"):
+        cam1[k] = data[k][1:]
+    one = mesh_reference(cam1, dev, 1)
+    wit = {"cameras": {f"mu/{k}": (data[f"ref1/mu/{k}"] + one[f"mu/{k}"]) / 2 for k in PARAM_NAMES}}
+    wit["cameras"]["grad2d"] = data["ref1/grad2d"] + one["grad2d"]
+    wit["bands"] = {k: v for k, v in two_bands.items() if k.startswith("mu/") or k == "grad2d"}
+    band_h = band_height(height, mesh_config(data).tile_size, 2)
+    halves = [mesh_reference(data, dev, 1, rows=slice(i * band_h, (i + 1) * band_h)) for i in range(2)]
+    split = {f"mu/{k}": halves[0][f"mu/{k}"] + halves[1][f"mu/{k}"] for k in PARAM_NAMES}
+    st = dstrat.update_state(dstrat.init_state(cap, dev), halves[0]["stats"] + halves[1]["stats"],
+                             halves[0]["radii"], width, height)
+    split["grad2d"] = st.grad2d.cpu().numpy()
+    gap = moment_errors(split, {k[5:]: v for k, v in data.items() if k.startswith("ref1/")})
+    log(f"  the band split alone (masked halves) against the one-rank batch-1 step: first moments "
+        f"{gap['mu']:.3e}, grad2d {gap['grad2d']:.3e} of each leaf's max")
+    for kind, batch in (("cameras", 2), ("bands", 1)):
+        ref = {k[5:]: v for k, v in data.items() if k.startswith(f"ref{batch}/")}
+        gap = moment_errors(wit[kind], ref)
+        log(f"  witness {kind} against the one-rank batch-{batch} step: first moments {gap['mu']:.3e}, grad2d "
+            f"{gap['grad2d']:.3e} of each leaf's max")
+        data.update({f"wit_{kind}/{k}": v for k, v in wit[kind].items()})
+        data[f"wit_{kind}/gap"] = np.array(max(gap.values()))
+    np.savez(path, **data)
+
+
+def one_rank_nccl(dev, data, timed=10):
+    """Phase 9 (a): a one-rank NCCL group on the card; the sharded and band
+    steps on mesh 1x1 against make_train_step, then each timed. Returns
+    the outputs of one band step with two bands on the one rank (the band
+    witness of (b))."""
+    import torch
+    import torch.distributed as dist
+    from gs_init_tpu_torch import kernels
+    from gs_init_tpu_torch.engine import optim
+    from gs_init_tpu_torch.engine.params import AuxParams
+    from gs_init_tpu_torch.engine.train_step import init_aux_opt, make_train_step
+    from gs_init_tpu_torch.parallel import shard
+
+    width, height, step, _ = (int(x) for x in data["meta"])
+    cfg = mesh_config(data)
+    acfg = optim.make_adam_config(cfg, 4.0)
+    ref = {k[5:]: v for k, v in data.items() if k.startswith("ref1/")}
+    ref.update(meta=data["meta"], pair_capacity=data["pair_capacity"])
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", world_size=1, rank=0,
+                            device_id=dev)
+    try:
+        mesh = shard.make_mesh(1, 1)
+        makers = dict(plain=lambda: make_train_step(cfg, acfg, width, height),
+                      sharded=lambda: shard.make_sharded_train_step(cfg, acfg, width, height, mesh),
+                      band=lambda: shard.make_band_sharded_train_step(cfg, acfg, width, height, mesh))
+        times = {}
+        for name, make in makers.items():
+            fn = make()
+            g, a, s, b = mesh_inputs(data, dev, 1)
+            kernels.reset_launch_counts()
+            g, a, s, aux, aux_opt, m = fn(g, a, s, AuxParams(), init_aux_opt(AuxParams()), b, step)
+            torch.cuda.synchronize()
+            launches = {k: kernels.LAUNCHES[k] for k in ("composite_fwd", "composite_bwd")}
+            if name != "plain":
+                err = mesh_errors(step_outputs(g, a, s, m), ref, MESH1_RTOL)
+                log(f"  (a) {name} step on a one-rank NCCL group (mesh 1x1) vs make_train_step: loss "
+                    f"{err['loss']:.3e}, first moments {err['mu']:.3e}, grad2d {err['grad2d']:.3e} of each leaf's "
+                    f"max (tol {MESH1_RTOL:g}); parameters {err['params']:.3e} raw, Adam-bound excess "
+                    f"{err['adam_excess']:.3e} (<= 0); launches {json.dumps(launches)}")
+                if not mesh_ok(err, MESH1_RTOL):
+                    raise RuntimeError(f"phase 9 (a): the one-rank {name} step disagrees with make_train_step")
+            if launches != dict(composite_fwd=1, composite_bwd=1):
+                raise RuntimeError(f"phase 9 (a): {name} step launched {launches}, not one K1 and one K2")
+            ms = []
+            for i in range(timed + 2):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                g, a, s, aux, aux_opt, m = fn(g, a, s, aux, aux_opt, b, step + 1 + i)
+                ev[1].record()
+                ms.append(ev)
+            torch.cuda.synchronize()
+            times[name] = float(np.median([e[0].elapsed_time(e[1]) for e in ms[2:]]))
+        log(f"  (a) step ms (CUDA events, median of {timed} after 2): plain {times['plain']:.3f}, one-rank "
+            f"sharded {times['sharded']:.3f}, one-rank band {times['band']:.3f}")
+        g, a, s, b = mesh_inputs(data, dev, 1)  # the band witness: two bands on this one rank
+        fn = shard.make_band_sharded_train_step(cfg, acfg, width, height, mesh, bands_per_rank=2)
+        g, a, s, _, _, m = fn(g, a, s, AuxParams(), init_aux_opt(AuxParams()), b, step)
+        two_bands = step_outputs(g, a, s, m)
+    finally:
+        dist.destroy_process_group()
+    return two_bands
+
+
+def shared_card_rank(rank, world, port, path, q):
+    """Phase 9 (b) worker: one rank of `world` sharing cuda:0 over gloo;
+    each mesh of MESHES_9B from the scenario's state (its ranks are 0..d*g-1),
+    one step compared (rank 0: against the one-rank step and the witness)
+    and one more timed."""
+    import torch
+    import torch.distributed as dist
+    from gs_init_tpu_torch import kernels
+    from gs_init_tpu_torch.engine import optim
+    from gs_init_tpu_torch.engine.params import AuxParams
+    from gs_init_tpu_torch.engine.train_step import init_aux_opt
+    from gs_init_tpu_torch.ops import rasterize as prast
+    from gs_init_tpu_torch.parallel import shard
+
+    try:
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world, rank=rank)
+        data = dict(np.load(path))
+        width, height, step, _ = (int(x) for x in data["meta"])
+        cfg = mesh_config(data)
+        acfg = optim.make_adam_config(cfg, 4.0)
+        out = []
+        for name, d, gg, bands, batch, kind in MESHES_9B:
+            mesh = shard.make_mesh(d, gg)
+            dist.barrier()
+            if not mesh.member:
+                out.append(None)
+                continue
+            make = shard.make_band_sharded_train_step if bands else shard.make_sharded_train_step
+            fn = make(cfg, acfg, width, height, mesh)
+            g, a, s, b = mesh_inputs(data, dev, batch)
+            g, a, s = shard.local_state(g, a, s, mesh)
+            if not bands:
+                b = shard.local_batch(b, mesh)
+            torch.cuda.reset_peak_memory_stats(dev)
+            kernels.reset_launch_counts()
+            g, a, s, aux, aux_opt, m = fn(g, a, s, AuxParams(), init_aux_opt(AuxParams()), b, step)
+            launches = {k: kernels.LAUNCHES[k] for k in ("composite_fwd", "composite_bwd")}
+            res = dict(launches=launches, pairs=int(m["pairs"]), overflow=int(m["overflow"]))
+            whole = shard.global_state(g, a, s, mesh)
+            if rank == 0:
+                got = step_outputs(*whole, m)
+                ref = {k[5:]: v for k, v in data.items() if k.startswith(f"ref{batch}/")}
+                ref.update(meta=data["meta"], pair_capacity=data["pair_capacity"])
+                wkey = f"wit_{kind}/" if kind else f"ref{batch}/"
+                wit = {k[len(wkey):]: v for k, v in data.items() if k.startswith(wkey)}
+                gap = float(wit.get("gap", 0.0))
+                res.update(err=mesh_errors(got, ref, MESHN_RTOL + gap), wit=moment_errors(got, wit), gap=gap)
+            del whole
+            # One more step, timed at its marks, its compositor inputs kept.
+            ev = {}
+            seen = {}
+            fwd = prast.composite_fwd
+
+            def rec_fwd(*args):
+                seen["args"] = tuple(x.detach() if hasattr(x, "detach") else x for x in args[:8])
+                seen["out"] = fwd(*args)
+                return seen["out"]
+
+            def mark(k):
+                ev[k] = torch.cuda.Event(enable_timing=True)
+                ev[k].record()
+
+            prast.composite_fwd = rec_fwd
+            torch.cuda.synchronize()
+            dist.barrier(group=mesh.world)  # rank 0's comparison is not in the timed step
+            try:
+                mark("start")
+                g, a, s, aux, aux_opt, m = fn(g, a, s, aux, aux_opt, b, step + 1, mark=mark)
+                mark("end")
+            finally:
+                prast.composite_fwd = fwd
+            res["launches2"] = {k: kernels.LAUNCHES[k] - res["launches"][k] for k in res["launches"]}
+            torch.cuda.synchronize()
+            names = list(ev)
+            phase = {k2: ev[k1].elapsed_time(ev[k2]) for k1, k2 in zip(names, names[1:])}
+            res.update(step_ms=ev["start"].elapsed_time(ev["end"]), gather_ms=phase["gather"],
+                       band_gather_ms=phase["render"] if bands else 0.0, reduce_ms=phase["reduce"],
+                       peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+            res["outside"] = work(seen["args"], seen["out"])["outside"] if bands else None
+            out.append(res)
+            del g, a, s, b, seen
+            torch.cuda.empty_cache()
+        dist.barrier()
+        dist.destroy_process_group()
+        q.put((rank, "ok", out))
+    except BaseException:
+        import traceback
+
+        q.put((rank, "error", traceback.format_exc()))
+
+
+def spawn_ranks(target, world, *args, timeout=900):
+    """Run target(rank, world, port, *args, queue) in `world` spawned
+    processes; returns their results by rank, raising a rank's error."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=target, args=(r, world, port) + args + (q,)) for r in range(world)]
+    for p in procs:
+        p.start()
+    results = {}
+    try:
+        for _ in procs:
+            rank, status, out = q.get(timeout=timeout)
+            if status != "ok":
+                raise RuntimeError(f"phase 9: rank {rank} of {world} failed:\n{out}")
+            results[rank] = out
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    return [results[r] for r in range(world)]
+
+
+def shared_card(path):
+    """Phase 9 (b): four ranks sharing cuda:0 over gloo, each mesh of
+    MESHES_9B at the flagship against the one-rank step and its witness."""
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(shared_card_rank, 4, path)
+    log(f"  (b) four ranks on cuda:0 over gloo, {time.perf_counter() - t0:.1f} s with start-up; per-rank "
+        f"times are shared-card figures (every rank on one H100), not scaling")
+    failures = []
+    one = dict(composite_fwd=1, composite_bwd=1)
+    for i, (name, d, g, bands, batch, kind) in enumerate(MESHES_9B):
+        per = [r[i] for r in ranks[: d * g]]
+        err, wit, gap = per[0]["err"], per[0]["wit"], per[0]["gap"]
+        log(f"  (b) {name} (batch {batch}): against the witness ({kind or 'the one-rank step'}): first moments "
+            f"{wit['mu']:.3e}, grad2d {wit['grad2d']:.3e} of each leaf's max (tol {MESHN_RTOL:g}); against the "
+            f"one-rank step: loss {err['loss']:.3e} (tol {MESHN_RTOL:g}), first moments {err['mu']:.3e}, grad2d "
+            f"{err['grad2d']:.3e} (the witness's own gap {gap:.3e}), parameters {err['params']:.3e} raw, Adam-bound "
+            f"excess at {MESHN_RTOL + gap:.3e} {err['adam_excess']:.3e} (<= 0); worst shard {per[0]['pairs']} pairs")
+        if max(wit.values()) > MESHN_RTOL or err["loss"] > MESHN_RTOL or err["adam_excess"] > 0.0:
+            failures.append(f"{name}: the sharded step disagrees with the one-rank step or its witness")
+        for r, res in enumerate(per):
+            times = (f"step {res['step_ms']:.3f} ms, all-gather {res['gather_ms']:.3f} ms"
+                     + (f", band gather {res['band_gather_ms']:.3f} ms" if bands else "")
+                     + f", gradient all-reduce {res['reduce_ms']:.3f} ms, peak {res['peak_gib']:.3f} GiB; ")
+            log(f"      rank {r}: {times}launches {json.dumps(res['launches'])} and {json.dumps(res['launches2'])}"
+                + (f"; pair-pixels outside the pair bounds {res['outside']} (must be 0)" if bands else ""))
+            if res["launches"] != one or res["launches2"] != one:
+                failures.append(f"{name}: rank {r} launched {res['launches']}, {res['launches2']} per step")
+            if bands and res["outside"]:
+                failures.append(f"{name}: {res['outside']} pair-pixels outside the pair bounds on rank {r}")
+            if res["overflow"]:
+                failures.append(f"{name}: rank {r}'s pair table overflowed")
+    if failures:
+        raise RuntimeError("phase 9 (b): " + "; ".join(failures))
+    return ranks
+
+
+def trainer_rank(rank, world, port, argvs, q):
+    """Phase 9 (c) worker: trainer.main on cuda:0 for each argv, in a
+    two-process launch under the JAX trainer's environment over gloo (the
+    ranks share the card; the process group forms at the first run), each
+    run followed by a sharded checkpoint of its final state."""
+    try:
+        import torch
+        import torch.distributed as dist
+        from gs_init_tpu_torch import kernels, trainer
+        from gs_init_tpu_torch.engine import ckpt
+
+        os.environ.update(COORDINATOR_ADDRESS=f"localhost:{port}", JAX_NUM_PROCESSES=str(world),
+                          JAX_PROCESS_ID=str(rank), LOCAL_RANK="0")
+        out = []
+        for argv in argvs:
+            kernels.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with open(os.devnull, "w") as quiet, contextlib.redirect_stdout(quiet):  # the step lines
+                runner = trainer.main(argv, device="cuda:0", backend="gloo")
+            secs = time.perf_counter() - t0
+            launches = {k: kernels.LAUNCHES[k] for k in ("composite_fwd", "composite_bwd")}
+            sharded = ckpt.save_sharded(runner, runner.cfg.max_steps)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            out.append(dict(secs=secs, launches=launches, mesh=runner.mesh.shape, n_val=len(runner.valset),
+                            peak_gib=peak, sharded=sharded))
+            del runner
+        dist.destroy_process_group()
+        q.put((rank, "ok", out))
+    except BaseException:
+        import traceback
+
+        q.put((rank, "error", traceback.format_exc()))
+
+
+def trainer_on_mesh(steps=300, width=648, height=420):
+    """Phase 9 (c): trainer.main in two ranks on phase 5's scene, 2x1
+    cameras (batch 2) and 2x1 bands (batch 1), each beside the one-rank
+    run; rank 0's npz restarts eval-only on one device; the sharded
+    checkpoint restores onto one rank."""
+    import torch
+    from gs_init_tpu_torch import trainer
+    from gs_init_tpu_torch.config import parse_cli
+    from gs_init_tpu_torch.engine import ckpt
+    from gs_init_tpu_torch.engine.runner import Runner
+    from gs_init_tpu_torch.utils.tb import read_scalars
+
+    failures = []
+    device = "cuda:0"
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir = phase5_scene(tmp, width, height)
+        common = ["default", f"--data_dir={data_dir}", "--data_factor=1", f"--max_steps={steps}",
+                  f"--eval_steps=[{steps}]", f"--save_steps=[{steps}]", "--test_every=4",
+                  "--max_gaussians=4096", "--pair_capacity=262144", "--sh_degree_interval=100",
+                  "--tb_every=1", "--strategy.refine_start_iter=50", "--strategy.refine_every=100",
+                  "--strategy.reset_every=10000"]
+        runs = (("cameras", ["--batch_size=2"]), ("bands", ["--batch_size=1", "--shard_pixels"]))
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(trainer_rank, 2, [common + extra + [f"--result_dir={os.path.join(tmp, tag)}",
+                                                                 "--mesh=2x1"] for tag, extra in runs])
+        log(f"  (c) the two-process launch (both runs) took {time.perf_counter() - t0:.1f} s with start-up")
+        for i, (tag, extra) in enumerate(runs):
+            res = os.path.join(tmp, tag)
+            per = [r[i] for r in ranks]
+            one_argv = common + [a for a in extra if a != "--shard_pixels"] + [f"--result_dir={res}_one",
+                                                                                "--mesh=off"]
+            psnr0 = Runner(parse_cli(one_argv, trainer.build_presets()), device=device).eval(0)["psnr"]
+            t1 = time.perf_counter()
+            with open(os.devnull, "w") as quiet, contextlib.redirect_stdout(quiet):
+                one = trainer.main(one_argv, device=device)
+            t2 = time.perf_counter()
+            stats = lambda d: json.load(open(os.path.join(d, "stats", f"val_step{steps}.json")))
+            psnr_mesh, psnr_one = stats(res)["psnr"], stats(f"{res}_one")["psnr"]
+            curve = dict(read_scalars(os.path.join(res, "tb"))["train/loss"])
+            curve_one = dict(read_scalars(os.path.join(f"{res}_one", "tb"))["train/loss"])
+            rel_gap = lambda steps_: max(abs(curve[s] - curve_one[s]) / abs(curve_one[s]) for s in steps_)
+            gap = rel_gap(range(CURVE_STEPS))
+            gap_before = rel_gap(range(100))  # the first refine is at step 100
+            with open(os.devnull, "w") as quiet, contextlib.redirect_stdout(quiet):
+                restart = trainer.main(["default", f"--data_dir={data_dir}", "--data_factor=1",
+                                        f"--result_dir={res}_restart", "--test_every=4", "--max_gaussians=4096",
+                                        "--pair_capacity=262144", "--mesh=off",
+                                        f"--ckpt=[{os.path.join(res, 'ckpts', f'ckpt_{steps}.npz')}]"],
+                                       device=device)
+            psnr_re = stats(f"{res}_restart")["psnr"]
+            r1 = Runner(parse_cli(one_argv[:-2] + [f"--result_dir={res}_sharded", "--mesh=off"],
+                                  trainer.build_presets()), device=device)
+            at = ckpt.load_sharded(r1, per[0]["sharded"])
+            r2 = Runner(parse_cli(one_argv[:-2] + [f"--result_dir={res}_npz", "--mesh=off"],
+                                  trainer.build_presets()), device=device)
+            r2.load(os.path.join(res, "ckpts", f"ckpt_{steps}.npz"))
+            mism = [k for k, (x, y) in runner_arrays(r1, r2).items() if not torch.equal(x, y)]
+            n_val = per[0]["n_val"]
+            log(f"  (c) trainer.main, 2x1 {tag} (two ranks on one card over gloo; shared-card figures): {steps} "
+                f"steps in {per[0]['secs']:.3f} s on rank 0 vs one rank {t2 - t1:.3f} s; eval PSNR {psnr0:.4f} -> "
+                f"{psnr_mesh:.4f} (one rank {psnr_one:.4f}); loss max rel gap to the one-rank run over steps 0-"
+                f"{CURVE_STEPS - 1} {gap:.3e} (tol {CURVE_RTOL:g}), over steps 0-99 (the first refine is at 100) "
+                f"{gap_before:.3e} (tol {PRE_REFINE_RTOL:g}); launches per rank {[r['launches'] for r in per]}; peak per rank "
+                f"{[round(r['peak_gib'], 3) for r in per]} GiB; eval-only restart of rank 0's npz on one "
+                f"device PSNR {psnr_re:.6f} (|diff| {abs(psnr_re - psnr_mesh):.2e}); sharded checkpoint "
+                f"(step {at}) onto one rank: {len(mism)} arrays differ from the npz")
+            # K1 once per step and per eval render; a band's pair capacity
+            # is sized for a band, so a full-image eval render may grow its
+            # table once and render again (Runner.render).
+            fwd = [r["launches"]["composite_fwd"] - steps - n_val for r in per]
+            launch_ok = all(r["launches"]["composite_bwd"] == steps for r in per) and all(
+                0 <= k <= (n_val if tag == "bands" else 0) for k in fwd)
+            failures += [f"{tag}: {what}" for bad, what in (
+                (not psnr_mesh > psnr0, "eval PSNR did not rise"),
+                (gap > CURVE_RTOL or gap_before > PRE_REFINE_RTOL, "the loss curve left the one-rank run's"),
+                (abs(psnr_re - psnr_mesh) > 1e-6, "the eval-only restart did not reproduce the PSNR"),
+                (bool(mism) or at != steps, f"the sharded checkpoint restored {mism} unequal"),
+                (not launch_ok, f"launches per rank {[r['launches'] for r in per]}"),
+            ) if bad]
+            del one, restart, r1, r2
+    if failures:
+        raise RuntimeError("phase 9 (c): " + "; ".join(failures))
+
+
+def runner_arrays(r1, r2):
+    """{name: (r1's tensor, r2's)} over two Runners' whole state."""
+    from gs_init_tpu_torch.engine.params import PARAM_NAMES, aux_leaves
+
+    out = {"alive": (r1.gstate.alive, r2.gstate.alive)}
+    for k in PARAM_NAMES:
+        out[f"params/{k}"] = (getattr(r1.gstate.params, k), getattr(r2.gstate.params, k))
+        out[f"mu/{k}"] = (getattr(r1.adam.mu, k), getattr(r2.adam.mu, k))
+        out[f"nu/{k}"] = (getattr(r1.adam.nu, k), getattr(r2.adam.nu, k))
+    for k in ("grad2d", "count", "radii_max"):
+        out[f"strategy/{k}"] = (getattr(r1.sstate, k), getattr(r2.sstate, k))
+    for i, (x, y) in enumerate(zip(aux_leaves(r1.aux), aux_leaves(r2.aux))):
+        out[f"aux/{i}"] = (x, y)
+    return out
+
+
+def leftovers_card_vs_cpu(dev, image):
+    """Phase 9 (d): SIFT descriptors (every 20th pixel) and the image
+    filters on a 1296x840 image, card against CPU."""
+    import torch
+    from gs_init_tpu_torch.mdi.descriptors import prepare_descriptors
+    from gs_init_tpu_torch.utils import image_filtering as F
+
+    h, w = image.shape[:2]
+    mask = np.zeros((h, w), bool)
+    mask[::20, ::20] = True
+    rel = lambda a, b: float(np.abs(a - b).max() / max(float(np.abs(b).max()), 1e-30))
+    t0 = time.perf_counter()
+    d_gpu, g_gpu = prepare_descriptors(torch.as_tensor(image, device=dev), mask)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    d_cpu, g_cpu = prepare_descriptors(image, mask)
+    t2 = time.perf_counter()
+    errs = {"descriptors": rel(d_gpu, d_cpu)}
+    gray = torch.as_tensor(image.mean(-1))
+    for name, fn in (("gaussian 1.0", lambda x: F.gaussian_filter2d(x, 1.0)),
+                     ("gaussian 2.5", lambda x: F.gaussian_filter2d(x, 2.5)),
+                     ("box 7", lambda x: F.box_blur2d(x, 7)),
+                     ("gradient dy", lambda x: F.spatial_gradient_first_order(x, 1.0)[0]),
+                     ("gradient dx", lambda x: F.spatial_gradient_first_order(x, 1.0)[1])):
+        errs[name] = rel(fn(gray.to(dev)).cpu().numpy(), fn(gray).numpy())
+    log(f"  (d) {len(d_gpu)} SIFT descriptors at {w}x{h} on the card in {t1 - t0:.3f} s (CPU {t2 - t1:.3f} s); "
+        f"max err / max, card vs CPU: {json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})} "
+        f"(tol {LEFTOVER_RTOL:g})")
+    if not np.array_equal(g_gpu, g_cpu) or len(d_gpu) == 0 or max(errs.values()) > LEFTOVER_RTOL:
+        raise RuntimeError("phase 9 (d): descriptors or filters on the card disagree with the CPU")
+
+
+def multi_gpu(dev, image):
+    """Phase 9: the multi-GPU paths, (a) to (d)."""
+    import torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = os.path.join(tmp, "scenario.npz")
+        data = mesh_scenario(dev, path)
+        log(f"  scenario: {int(data['meta'][3])} slots, {int(data['alive'].sum())} alive, two cameras at "
+            f"{int(data['meta'][0])}x{int(data['meta'][1])}; one-rank steps: {int(data['ref2/pairs'])} pairs at "
+            f"batch 2, {int(data['ref1/pairs'])} at batch 1 -> pair capacity {int(data['pair_capacity'])}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        witnesses(dev, data, path, one_rank_nccl(dev, data))
+        del data
+        torch.cuda.empty_cache()
+        shared_card(path)
+    torch.cuda.empty_cache()
+    trainer_on_mesh()
+    leftovers_card_vs_cpu(dev, image)
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -2049,7 +2725,6 @@ def main():
     card = card_line()
     log("phase 1: card and build")
     build_kernels()
-
     log("phase 2: kernels against plain, and a train step against the CPU")
     check_kernels("mid-size scene", *compositor_case(dev, "mid"))
     check_kernels("deep stack", *compositor_case(dev, "deep"))
@@ -2103,6 +2778,7 @@ def main():
         sam_card_vs_cpu(dev)
         sam_full_width(dev, scene)
         sam_runner_e2e(dev, scene, data_dir)
+        image9 = np.array(scene.images[0], np.float32)
     log(f"phase 7: the trainer entry point, both presets, checkpoints and the eval-only restart "
         f"({time.perf_counter() - t_start:.1f} s)")
     trainer_entry()
@@ -2118,6 +2794,12 @@ def main():
         sweep_e2e(tmp)
         method_e2e(os.path.join(tmp, "data", "scene"), os.path.join(tmp, "method"))
         viewer_e2e(os.path.join(tmp, "data", "scene"), os.path.join(tmp, "viewer"))
+
+    log(f"phase 9: multi-GPU, a one-rank NCCL group, ranks sharing the card, the trainer on a mesh, "
+        f"the leftovers ({time.perf_counter() - t_start:.1f} s)")
+    t9 = time.perf_counter()
+    multi_gpu(dev, image9)
+    log(f"  phase 9 took {time.perf_counter() - t9:.1f} s")
 
     log(f"total {time.perf_counter() - t_start:.3f} s")
     log(card)

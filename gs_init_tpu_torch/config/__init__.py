@@ -12,7 +12,6 @@ from .config import (
     RansacConfig,
     SegmentationConfig,
     SfmPointsMaskConfig,
-    check_slice,
     to_dict,
 )
 
@@ -30,7 +29,6 @@ __all__ = [
     "SegmentationConfig",
     "SfmPointsMaskConfig",
     "apply_overrides",
-    "check_slice",
     "parse_cli",
     "to_dict",
 ]

@@ -7,9 +7,10 @@ JAX package's field names and defaults so a configuration carries over.
 or monocular-depth init (any of the five depth networks or the stub
 predictor), with pose / appearance / bilateral-grid optimisation, patch
 crops, checkpoints, PLY export, compression, the profiler window, the live
-viewer, SAM segmentation and the init-cloud export. ``check_slice`` raises
-on what is not ported yet (multi-device training), naming the queue that
-brings it.
+viewer, SAM segmentation and the init-cloud export, on one GPU or on a
+multi-GPU mesh (``mesh``, ``shard_pixels``). ``data_parallel`` keeps its
+only JAX meaning, a learning-rate batch factor (``engine/optim.py``);
+``gaussian_shards`` is read nowhere, in either package.
 
 TPU-only knobs are accepted and have no effect here: the port always uses
 the f32 16-column pair table and f32 gradient sums (``wire8``,
@@ -237,7 +238,10 @@ class Config:
     wire8: bool = True
     rasterizer_impl: Literal["auto", "pallas", "xla"] = "auto"
 
-    # Devices
+    # Devices: "auto" (every process of a multi-GPU launch; one device
+    # otherwise), "off" (one device) or "DxG" (data x gauss ranks).
+    # shard_pixels shards tile-row bands of each image over the data axis
+    # in place of cameras (parallel/shard.py).
     mesh: str = "auto"
     shard_pixels: bool = False
 
@@ -284,8 +288,8 @@ class Config:
     tb_save_image: bool = False
     ckpt: Optional[List[str]] = None
     seed: int = 42
-    data_parallel: int = 1
-    gaussian_shards: int = 1
+    data_parallel: int = 1  # learning-rate batch factor only (engine/optim.py)
+    gaussian_shards: int = 1  # read nowhere, as in the JAX package
 
     def adjust_steps(self, factor: Optional[float] = None) -> None:
         """Scale every step schedule by ``steps_scaler`` (or ``factor``),
@@ -310,29 +314,6 @@ class Config:
             s.refine_every = int(s.refine_every * f)
         else:
             raise ValueError(f"unknown strategy {s!r}")
-
-
-# (condition, what it selects, the ROADMAP queue entry that ports it)
-_LATER = (
-    (
-        lambda c: c.data_parallel > 1 or c.gaussian_shards > 1 or c.shard_pixels
-        or c.mesh not in ("auto", "off", "1x1"),
-        "multi-device training", "the multi-GPU slice",
-    ),
-)
-
-
-def _raise_later(what: str, later: str):
-    raise NotImplementedError(
-        f"{what} is not ported to gs_init_tpu_torch yet ({later} in ROADMAP.md)"
-    )
-
-
-def check_slice(cfg: Config) -> None:
-    """Raise NotImplementedError on settings the port does not run yet."""
-    for cond, what, later in _LATER:
-        if cond(cfg):
-            _raise_later(what, later)
 
 
 def to_dict(cfg) -> dict:

@@ -74,6 +74,100 @@ def sh_coeff_mask(step: int, sh_degree: int, interval: int, device=None) -> torc
     return (idx < n_active).float()
 
 
+def sh_basis_mask(cfg, step: int, device=None) -> torch.Tensor:
+    """[K] mask of the SH bases that colour the render at ``step``."""
+    return torch.cat([
+        torch.ones((1,), device=device),
+        sh_coeff_mask(step, cfg.sh_degree, cfg.sh_degree_interval, device),
+    ])
+
+
+def background(cfg, bkgd: Optional[torch.Tensor], c: int, device) -> Optional[torch.Tensor]:
+    """The background [C, 3] of ``c`` cameras: the caller's random draw
+    ``bkgd`` (``cfg.random_bkgd``), the configured colour, or None."""
+    if cfg.random_bkgd:
+        if bkgd is None:
+            raise ValueError("cfg.random_bkgd needs the random background bkgd [B, 3]")
+        return bkgd
+    if cfg.background_color is not None:
+        return torch.tensor(cfg.background_color, dtype=torch.float32, device=device)[None].repeat(c, 1)
+    return None
+
+
+def appearance_rgb(cfg, app, sh0: torch.Tensor, means: torch.Tensor, c2w: torch.Tensor,
+                   image_ids: torch.Tensor, step: int) -> torch.Tensor:
+    """[C, N, 3] colours of the appearance MLP (``cfg.app_opt``): embedding
+    and feature residuals on the base colour logit sh0."""
+    dirs = means[None, :, :] - c2w[:, None, :3, 3]
+    active_deg = min(step // cfg.sh_degree_interval, cfg.sh_degree)
+    resid = appearance_colors(app, image_ids, dirs, active_deg, cfg.sh_degree)
+    return torch.sigmoid(resid + sh0[None, :, 0, :])
+
+
+def image_loss(cfg, la: AuxParams, batch: Batch, rendered, alpha, depth, depth_count=None):
+    """The loss of a render, regularisers aside: the sampling mask
+    (masked-out pixels keep their values but pass no gradient), the
+    bilateral grid, (1 - lambda) L1 + lambda (1 - SSIM), the sparse
+    disparity loss and the grids' TV loss. ``rendered`` [B, H, W, 3] has
+    its background, ``alpha`` is [B, H, W, 1], ``depth`` [B, H, W] the
+    expected depth (read with ``cfg.depth_loss``). The disparity loss is
+    its sum over ``depth_count(valid)``, by default the batch's count of
+    valid points (at least 1). Returns (loss, l1, ssim, masked alpha)."""
+    if batch.sampling_mask is not None:
+        m = batch.sampling_mask.to(rendered.dtype)
+        rendered = rendered * m + rendered.detach() * (1 - m)
+        alpha = alpha * m + alpha.detach() * (1 - m)
+    if cfg.use_bilateral_grid and la.grids is not None:
+        rendered = slice_bilateral_grid(la.grids, rendered, batch.image_ids)
+    pixels = batch.pixels
+    l1 = torch.mean(torch.abs(rendered - pixels))
+    ssim_val = ssim(rendered, pixels)
+    loss = (1.0 - cfg.ssim_lambda) * l1 + cfg.ssim_lambda * (1.0 - ssim_val)
+    if cfg.depth_loss and batch.depth_points is not None:
+        pts = batch.depth_points.long()
+        b_idx = torch.arange(depth.shape[0], device=depth.device)[:, None]
+        sampled = depth[b_idx, pts[..., 1], pts[..., 0]]
+        valid = batch.depth_values > 0
+        disp = torch.where(valid, 1.0 / torch.clamp(sampled, min=1e-6), 0.0)
+        disp_gt = torch.where(valid, 1.0 / torch.clamp(batch.depth_values, min=1e-6), 0.0)
+        nvalid = torch.clamp(valid.sum(), min=1) if depth_count is None else depth_count(valid)
+        loss = loss + cfg.depth_lambda * (torch.abs(disp - disp_gt).sum() / nvalid)
+    if cfg.use_bilateral_grid and la.grids is not None:
+        loss = loss + cfg.tv_lambda * total_variation_loss(la.grids)
+    return loss, l1, ssim_val, alpha
+
+
+def regulariser_loss(cfg, alive, opacities, scales, mean=torch.mean):
+    """The opacity and scale regularisers: ``mean`` over the capacity of
+    the alive gaussians' |opacity| and |scale| (the sharded steps pass a
+    mean over every gaussian shard); 0.0 when both are off."""
+    loss = 0.0
+    if cfg.opacity_reg > 0.0:
+        loss = loss + cfg.opacity_reg * mean(torch.where(alive, torch.abs(opacities), 0.0))
+    if cfg.scale_reg > 0.0:
+        loss = loss + cfg.scale_reg * mean(torch.where(alive[:, None], torch.abs(scales), 0.0))
+    return loss
+
+
+def update_aux(cfg, acfg: AdamConfig, aux: AuxParams, aux_opt: AuxOptState, agrads: AuxParams,
+               step: int) -> AuxOptState:
+    """Adam on the enabled aux groups, in place: the pose deltas at the
+    means' decayed rate, the appearance MLP, the bilateral grid at 2e-3."""
+    decay = np.float32(acfg.means_decay_gamma) ** np.float32(step)
+    if aux.pose is not None:
+        aux_opt.pose = simple_adam_update(
+            aux.pose, agrads.pose, aux_opt.pose,
+            lr=np.float32(cfg.pose_opt_lr) * decay, weight_decay=cfg.pose_opt_reg,
+        )
+    if aux.app is not None:
+        aux_opt.app = simple_adam_update(
+            aux.app, agrads.app, aux_opt.app, lr=cfg.app_opt_lr, weight_decay=cfg.app_opt_reg
+        )
+    if aux.grids is not None:
+        aux_opt.grids = simple_adam_update(aux.grids, agrads.grids, aux_opt.grids, lr=2e-3)
+    return aux_opt
+
+
 def make_train_step(cfg, acfg: AdamConfig, width: int, height: int):
     """Build ``train_step(gstate, adam, sstate, aux, aux_opt, batch, step,
     bkgd=None, mark=None) -> (gstate, adam, sstate, aux, aux_opt, metrics)``.
@@ -138,29 +232,14 @@ def make_train_step(cfg, acfg: AdamConfig, width: int, height: int):
         if cfg.pose_opt and la.pose is not None:
             c2w = apply_pose_deltas(c2w, la.pose, batch.image_ids)
         viewmats = torch.linalg.inv(c2w)
-        if cfg.random_bkgd:
-            if bkgd is None:
-                raise ValueError("cfg.random_bkgd needs the random background bkgd [B, 3]")
-        elif cfg.background_color is not None:
-            bkgd = torch.tensor(cfg.background_color, dtype=torch.float32, device=dev)
-            bkgd = bkgd[None].repeat(c, 1)
-        else:
-            bkgd = None
+        bkgd = background(cfg, bkgd, c, dev)
         if cfg.app_opt and la.app is not None:
-            dirs = lp.means[None, :, :] - c2w[:, None, :3, 3]
-            active_deg = min(step // cfg.sh_degree_interval, cfg.sh_degree)
-            resid = appearance_colors(la.app, batch.image_ids, dirs, active_deg, cfg.sh_degree)
-            colors = torch.sigmoid(resid + lp.sh0[None, :, 0, :])
+            colors = appearance_rgb(cfg, la.app, lp.sh0, lp.means, c2w, batch.image_ids, step)
             sh_degree, sh_mask = None, None
         else:
             colors = lp.sh_coeffs()
             sh_degree = cfg.sh_degree
-            sh_mask = torch.cat(
-                [
-                    torch.ones((1,), device=dev),
-                    sh_coeff_mask(step, cfg.sh_degree, cfg.sh_degree_interval, dev),
-                ]
-            )
+            sh_mask = sh_basis_mask(cfg, step, dev)
         mark("setup")
         render, alpha, info = rasterize(
             lp.means, lp.quats, scales, opacities, colors, viewmats,
@@ -170,38 +249,10 @@ def make_train_step(cfg, acfg: AdamConfig, width: int, height: int):
             pair_capacity=cfg.pair_capacity, **rasterize_kw,
         )
         mark("render")
-        rendered = render[..., :3]
-        if batch.sampling_mask is not None:
-            # Masked-out pixels keep their values but pass no gradient.
-            m = batch.sampling_mask.to(rendered.dtype)
-            rendered = rendered * m + rendered.detach() * (1 - m)
-            alpha = alpha * m + alpha.detach() * (1 - m)
-        if cfg.use_bilateral_grid and la.grids is not None:
-            rendered = slice_bilateral_grid(la.grids, rendered, batch.image_ids)
-        pixels = batch.pixels
-        l1 = torch.mean(torch.abs(rendered - pixels))
-        ssim_val = ssim(rendered, pixels)
-        loss = (1.0 - cfg.ssim_lambda) * l1 + cfg.ssim_lambda * (1.0 - ssim_val)
-        if cfg.depth_loss and batch.depth_points is not None:
-            depth = render[..., 3]
-            pts = batch.depth_points.long()
-            b_idx = torch.arange(depth.shape[0], device=dev)[:, None]
-            sampled = depth[b_idx, pts[..., 1], pts[..., 0]]
-            valid = batch.depth_values > 0
-            disp = torch.where(valid, 1.0 / torch.clamp(sampled, min=1e-6), 0.0)
-            disp_gt = torch.where(valid, 1.0 / torch.clamp(batch.depth_values, min=1e-6), 0.0)
-            nvalid = torch.clamp(valid.sum(), min=1)
-            loss = loss + cfg.depth_lambda * (torch.abs(disp - disp_gt).sum() / nvalid)
-        if cfg.use_bilateral_grid and la.grids is not None:
-            loss = loss + cfg.tv_lambda * total_variation_loss(la.grids)
-        if cfg.opacity_reg > 0.0:
-            loss = loss + cfg.opacity_reg * torch.mean(
-                torch.where(alive, torch.abs(opacities), 0.0)
-            )
-        if cfg.scale_reg > 0.0:
-            loss = loss + cfg.scale_reg * torch.mean(
-                torch.where(alive[:, None], torch.abs(scales), 0.0)
-            )
+        loss, l1, ssim_val, alpha = image_loss(
+            cfg, la, batch, render[..., :3], alpha, render[..., 3] if cfg.depth_loss else None
+        )
+        loss = loss + regulariser_loss(cfg, alive, opacities, scales)
         mark("loss")
 
         # Per-pair absolute gradients come from the compositor's absgrad
@@ -217,19 +268,7 @@ def make_train_step(cfg, acfg: AdamConfig, width: int, height: int):
             p, GaussianParams(**dict(zip(PARAM_NAMES, grads[:6]))), adam, acfg, step
         )
         mark("adam")
-        agrads = aux_from_leaves(aux, grads[len(inputs):])
-        decay = np.float32(acfg.means_decay_gamma) ** np.float32(step)
-        if aux.pose is not None:
-            aux_opt.pose = simple_adam_update(
-                aux.pose, agrads.pose, aux_opt.pose,
-                lr=np.float32(cfg.pose_opt_lr) * decay, weight_decay=cfg.pose_opt_reg,
-            )
-        if aux.app is not None:
-            aux_opt.app = simple_adam_update(
-                aux.app, agrads.app, aux_opt.app, lr=cfg.app_opt_lr, weight_decay=cfg.app_opt_reg
-            )
-        if aux.grids is not None:
-            aux_opt.grids = simple_adam_update(aux.grids, agrads.grids, aux_opt.grids, lr=2e-3)
+        aux_opt = update_aux(cfg, acfg, aux, aux_opt, aux_from_leaves(aux, grads[len(inputs):]), step)
         mark("aux")
         if track_stats:
             stats_grads = grads[7].reshape(c, -1, 2) if absgrad else grads[6]

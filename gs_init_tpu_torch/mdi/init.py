@@ -84,7 +84,7 @@ def _predict_or_cached(cfg, model, items):
             preds[i] = (np.asarray(out.depth), np.asarray(out.mask), nrm)
             if cfg.mdi.use_cache:
                 p = _cache_path(cfg, items[i]["image_name"])
-                tmp = p + ".tmp"
+                tmp = f"{p}.{os.getpid()}.tmp"  # another process may write the same entry
                 try:
                     extra = {} if nrm is None else {"normal": nrm}
                     with open(tmp, "wb") as f:  # a handle: savez appends .npz to a path

@@ -14,13 +14,20 @@ device="cpu")`` runs it on the CPU (the tests do).
 With ``--disable_viewer=false`` the live viewer serves during training and,
 unless ``--non_blocking_viewer``, stays up after it until Ctrl+C.
 
-Still raising, naming the multi-GPU slice that ports them: a multi-host
-launch (``COORDINATOR_ADDRESS`` or ``JAX_COORDINATOR_ADDRESS`` set) and
-multi-device settings (``config.check_slice``).
+Multi-GPU: one process per GPU, launched by torchrun or with the JAX
+trainer's ``COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` /
+``JAX_PROCESS_ID`` (``parallel/multihost.py``); ``--mesh=DxG`` (or
+``auto``) and ``--shard_pixels`` pick the mesh::
+
+    torchrun --nproc_per_node=4 -m gs_init_tpu_torch.trainer default \
+        --data_dir data/360_v2/garden --mesh=2x2
+
+Each process runs on ``cuda:LOCAL_RANK`` unless ``main`` is given a
+device; the process group uses NCCL on the card and gloo on the CPU, and
+``main(..., backend="gloo")`` lets several ranks share one card.
 """
 from __future__ import annotations
 
-import os
 import sys
 
 from .config import Config, DefaultStrategyConfig, MCMCStrategyConfig, parse_cli
@@ -63,12 +70,17 @@ def run_with_config(cfg: Config, device=None):
     return runner
 
 
-def main(argv=None, device=None):
-    if os.environ.get("JAX_COORDINATOR_ADDRESS") or os.environ.get("COORDINATOR_ADDRESS"):
-        raise NotImplementedError(
-            "a multi-host launch (COORDINATOR_ADDRESS) is not ported to gs_init_tpu_torch yet "
-            "(the multi-GPU slice in ROADMAP.md)"
-        )
+def main(argv=None, device=None, backend=None):
+    """Parse the CLI and run. Under a multi-process launch (torchrun, or
+    ``COORDINATOR_ADDRESS``) join the process group first: ``device``
+    defaults to ``cuda:LOCAL_RANK`` and ``backend`` to NCCL there (gloo on
+    the CPU)."""
+    from .parallel.multihost import initialize_multihost, launch_env, local_device
+
+    if launch_env():
+        device = local_device(device)
+        rank, world = initialize_multihost(backend=backend, device=device)
+        print(f"[trainer] process {rank} of {world} on {device}", flush=True)
     cfg = parse_cli(argv if argv is not None else sys.argv[1:], build_presets())
     return run_with_config(cfg, device=device)
 

@@ -61,8 +61,11 @@ class ViewerServer:
     training while views are served from its current parameters. A train
     iteration updates them in place, so each render holds ``runner.lock``,
     which every train iteration holds too (the JAX viewer instead retries a
-    render whose donated buffers a concurrent step deleted). Pass
-    ``port=0`` to bind an ephemeral port.
+    render whose donated buffers a concurrent step deleted). Under a
+    multi-GPU mesh it serves the main process and draws the copy of the
+    state that the Runner gathers every ``tb_every`` steps
+    (``Runner.view_gstate``). Pass ``port=0`` to bind an ephemeral
+    port.
     """
 
     def __init__(self, runner, port: int = 8080, width: int = 640):
@@ -87,7 +90,7 @@ class ViewerServer:
     def render_view(self, yaw: float, pitch: float, radius: float, w: int, h: int) -> np.ndarray:
         c2w, K = self.camera(yaw, pitch, radius, w, h)
         with self.runner.lock:
-            color, _, _ = self.runner.render(c2w, K, w, h, render_mode="RGB")
+            color, _, _ = self.runner.render(c2w, K, w, h, render_mode="RGB", gstate=self.runner.view_gstate)
         return (np.clip(color, 0, 1) * 255).astype(np.uint8)
 
     def _bind(self):
@@ -142,7 +145,7 @@ class ViewerServer:
                     self._send("image/png", encode_png(img))
                 elif u.path == "/status":
                     with viewer.runner.lock:
-                        n_gs = num_alive(viewer.runner.gstate)
+                        n_gs = num_alive(viewer.runner.view_gstate)
                     body = json.dumps({"step": int(viewer.runner.train_step), "num_GS": n_gs})
                     self._send("application/json", body.encode())
                 else:

@@ -28,7 +28,7 @@ from gs_init_tpu.datasets.synthetic import make_scene, write_colmap_scene
 from gs_init_tpu.engine.runner import Runner as JRunner
 from gs_init_tpu.mdi.init import pts_and_rgb_from_monocular_depth as j_pts_and_rgb
 from gs_init_tpu.mdi.predictors.stub import StubPredictor as JStub
-from gs_init_tpu_torch.config import Config, check_slice
+from gs_init_tpu_torch.config import Config
 from gs_init_tpu_torch.datasets.parser import Parser
 from gs_init_tpu_torch.engine.params import SH0_C, init_from_points
 from gs_init_tpu_torch.engine.runner import Runner
@@ -181,10 +181,10 @@ def test_runner_initial_state_matches_jax(colmap_scene, tmp_path):
 
 
 def test_monocular_depth_settings_the_port_refuses(colmap_scene, tmp_path, monkeypatch):
-    """Every monocular-depth setting runs now: SAM segmentation (a Runner
-    on random weights of a narrow SAM, through to a train step), the
-    init-cloud export flags and every depth network. Multi-device training
-    is still refused, with or without the mdi init."""
+    """Nothing is refused any more: SAM segmentation runs (a Runner on
+    random weights of a narrow SAM, through to a train step), and so does
+    ``data_parallel=2`` with the mdi init, whose only meaning is the
+    learning-rate batch factor (sqrt 2 here, ``engine/optim.py``)."""
     from gs_init_tpu_torch.mdi import segmentation_sam
     from gs_init_tpu_torch.mdi.predictors import sam_convert
 
@@ -198,17 +198,10 @@ def test_monocular_depth_settings_the_port_refuses(colmap_scene, tmp_path, monke
             setattr(c.mdi, k, v)
         return c
 
-    check_slice(cfg())
-    for mdi in (dict(export_ply=True), dict(pts_only=True), dict(pts_output_dir=str(tmp_path)),
-                dict(pts_output_per_image=True)):
-        check_slice(cfg(**mdi))
-    for ported in ("metric3d", "depth_anything_v2", "moge", "unidepth", "depth_pro"):
-        check_slice(cfg(predictor=ported))  # every depth network runs; metric3d is the default
     c = cfg(use_cache=False)
     seg = c.mdi.alignment.segmentation
     seg.method, seg.sam_variant, seg.sam_img_size = "sam", "tiny", 128
     seg.sam_allow_random_weights = True
-    check_slice(c)
     monkeypatch.setenv("GS_TPU_CHECKPOINT_DIR", str(tmp_path / "no_weights"))
     monkeypatch.setitem(sam_convert.SAM_VARIANTS, "tiny",
                         dict(dim=32, depth=2, num_heads=2, global_attn_indexes=(1,)))
@@ -219,9 +212,13 @@ def test_monocular_depth_settings_the_port_refuses(colmap_scene, tmp_path, monke
         segmentation_sam._cached_generator.cache_clear()
     assert int(runner.gstate.alive.sum()) > len(runner.parser.points)
     assert np.isfinite(float(runner.train_iteration(0)["loss"]))
-    c.data_parallel = 2
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        Runner(c, device="cpu")
+    c2 = cfg()
+    c2.data_parallel = 2
+    runner2 = Runner(c2, device="cpu")
+    assert runner2.mesh is None
+    for k, lr in runner.acfg.lrs.items():
+        assert runner2.acfg.lrs[k] == pytest.approx(lr * np.sqrt(2.0), rel=1e-12)
+    assert np.isfinite(float(runner2.train_iteration(0)["loss"]))
 
 
 def test_init_cloud_export_matches_jax(colmap_scene, tmp_path):

@@ -137,12 +137,6 @@ def test_adjust_steps_matches_jax(strategy):
     assert vars(p.strategy) == vars(j.strategy)
 
 
-def test_main_refuses_a_multihost_launch(monkeypatch, scene_dir):
-    monkeypatch.setenv("COORDINATOR_ADDRESS", "localhost:1234")
-    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
-        trainer.main(["default", f"--data_dir={scene_dir}"], device="cpu")
-
-
 def test_main_defaults_to_cuda(monkeypatch, scene_dir, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -401,33 +395,6 @@ def test_prefetch_raises_the_worker_error_and_joins():
     finally:
         pf.close()
     assert not pf._thread.is_alive()
-
-
-@pytest.mark.parametrize(
-    "setting",
-    [dict(strategy=MCMCStrategyConfig()), dict(pose_opt=True), dict(pose_noise=0.1), dict(app_opt=True),
-     dict(use_bilateral_grid=True), dict(patch_size=16), dict(ckpt=["x.npz"]), dict(save_ply=True),
-     dict(compression="quantized"), dict(profile_start=3), dict(disable_viewer=False)],
-    ids=lambda d: next(iter(d)),
-)
-def test_check_slice_lets_the_ported_settings_through(setting):
-    from gs_init_tpu_torch.config import check_slice
-
-    check_slice(Config(**setting))
-
-
-@pytest.mark.parametrize(
-    "setting,later",
-    [(dict(data_parallel=2), "multi-GPU"),
-     (dict(gaussian_shards=2), "multi-GPU"), (dict(shard_pixels=True), "multi-GPU"),
-     (dict(mesh="2x1"), "multi-GPU")],
-    ids=lambda x: str(next(iter(x))) if isinstance(x, dict) else x,
-)
-def test_check_slice_still_refuses(setting, later):
-    from gs_init_tpu_torch.config import check_slice
-
-    with pytest.raises(NotImplementedError, match=later):
-        check_slice(Config(**setting))
 
 
 def test_nerfstudio_parser_matches_jax(tmp_path):
