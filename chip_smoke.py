@@ -3,7 +3,6 @@
 kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py   # from the repo root, on a machine with one card
-    python3 chip_smoke.py --phase 9   # phases 1 and 9 only, without the result lines
 
 Phases, each fatal: an exception ends the script with a non-zero code and
 no result line.
@@ -39,7 +38,9 @@ no result line.
    (captured from one more step), the pair-bounds count again, the chunks
    per tile, the time of both, and each kernel's bound from this run's
    data. The scan probe's device-only time from the profiler, beside an
-   empty kernel launched the same way (the launch floor).
+   empty kernel and a copy of its inputs to its outputs launched the same
+   way: its bound that a launch can reach is the larger of its bytes and
+   operations bound and the copy's time (the launch and copy floor).
 3b. The flagship under the mcmc preset (init opacity 0.5, scale 0.1,
    opacity and scale regularisers), a relocation every 10 steps from step
    0 (2 in the 20 timed steps): step, relocation and noise times, device
@@ -130,6 +131,31 @@ no result line.
    rising, rank 0's npz restarting eval-only on one device to the same
    PSNR, the sharded checkpoint restoring onto one rank equal to the npz. (d) SIFT descriptors and the image filters on one of
    phase 6a's 1296x840 images, card against CPU.
+10. The whole path at garden scale (GARDEN): a scene with Mip-NeRF 360
+   garden's widths at data_factor 4 built from a seed (96 of its 185
+   cameras at 1296x840, test_every 8; 10^6 ground-truth gaussians in make_clustered_
+   scene's layout, rendered through K1; 100,000 SfM points on the
+   foreground alone, written through write_colmap_scene), then the entry
+   points a user calls: parse_cli with the default preset and override
+   strings (init_type monocular_depth with the stub over the expected
+   depth, capacity 3,000,000, 1,500 steps, eval and a checkpoint at 1,500,
+   an opacity reset at 1,000), Runner(cfg, parser, mdi_model=stub).train()
+   and the eval-only restart through trainer.main(["--ckpt", ...]). Held:
+   the median recovered scale, a finite loss at every step, the alive
+   count rising from the first refine to the last within the capacity,
+   eval PSNR above the initial gaussians', one K1 and one K2 launch per
+   step plus K1 per eval render (the Runner's own count), the restart's
+   PSNR equal to 1e-6. Printed: the scene build, the init's seconds per
+   image (predict, align, host), the kNN scale init's time and peak
+   memory, steps per second between refines, each refine, the retunes and
+   overflowed steps, a profiler window after the last refine, eval ms per
+   image, the checkpoint's bytes and save / load seconds, peak memory.
+   Also: the rim-bias witness (the scale fitted to the exact surface
+   depth at the SfM observations' pixels must come out within the median's
+   limit); the kNN scale init against two plain searches over the init
+   cloud, timed, within KNN_ULP; and the growth run, the same scene from
+   its SfM points alone (init_type sfm), whose alive count must more than
+   double across the refines and whose pair table must grow after one.
 
 The line before the last lists the kernels as JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -882,12 +908,27 @@ def aux_flagship(dev):
     profile_window(ctx, float(np.median(step_ms)))
 
 
+def cuda_rows(prof, nsteps):
+    """(device ms per step, launches per step, name) of each kernel in a
+    torch.profiler window of nsteps steps, most device time first."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        rows.append((us / 1e3 / nsteps, evt.count // nsteps, evt.key))
+    return sorted(rows, reverse=True)
+
+
 def profile_window(ctx, step_ms, nsteps=3):
     """Device time by kernel over a few steps (torch.profiler), and the
     device's idle share: 1 - busy time / the unprofiled median step time
     (the profiler slows the host, so its own window overstates idleness)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -896,27 +937,18 @@ def profile_window(ctx, step_ms, nsteps=3):
         for _ in range(nsteps):
             run_step(ctx)
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    rows = []
-    for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = evt.self_cuda_time_total
-        rows.append((us / nsteps, evt.count // nsteps, evt.key))
-    rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows) * nsteps
-    if busy <= 0:  # a measurement gap, not a fault of the path
+        wall_ms = (time.perf_counter() - t0) * 1e3 / nsteps
+    rows = cuda_rows(prof, nsteps)
+    busy_ms = sum(r[0] for r in rows)
+    if busy_ms <= 0:  # a measurement gap, not a fault of the path
         log("  profiler saw no device time here; the CUDA-event phase times above stand")
         return
-    busy_ms = busy / 1e3 / nsteps
     log(f"  profiler ({nsteps} steps): device busy {busy_ms:.3f} ms/step; idle share "
         f"{max(0.0, 1 - busy_ms / step_ms):.3f} of the unprofiled {step_ms:.3f} ms step "
-        f"({max(0.0, 1 - busy / wall_us):.3f} of the profiled {wall_us / 1e3 / nsteps:.3f} ms); "
+        f"({max(0.0, 1 - busy_ms / wall_ms):.3f} of the profiled {wall_ms:.3f} ms); "
         f"top kernels by device time:")
-    for us, cnt, key in rows[:12]:
-        log(f"    {us / 1e3:9.3f} ms/step  x{cnt:<3d} {key[:110]}")
+    for ms, cnt, key in rows[:12]:
+        log(f"    {ms:9.3f} ms/step  x{cnt:<3d} {key[:110]}")
 
 
 # ------------------------------------------------------------------ phase 4
@@ -1004,12 +1036,31 @@ def work(fwd_args, out):
 
 # An empty kernel with the scan probe's signature, grid and block, launched
 # through ctypes the same way: its time is the floor under any launch.
+# An empty kernel and a copy kernel, each on p blocks of n threads (rounded
+# up to a warp; the scan probe's first grid): the copy reads the probe's two
+# [n, p] inputs once and writes its two outputs once, thread i of block b
+# on element b n + i (coalesced), the least that a launch doing the
+# probe's traffic can take.
 EMPTY_SRC = r"""
 #include <cuda_runtime.h>
 __global__ void empty_kernel(const float*, const float*, float*, float*, int, int) {}
+__global__ void copy_kernel(const float* x, const float* m, float* s, float* q, int n, int p) {
+  if (threadIdx.x < n) {
+    const int i = blockIdx.x * n + threadIdx.x;
+    s[i] = x[i];
+    q[i] = m[i];
+  }
+}
 extern "C" int empty_launch(const void* x, const void* m, void* s, void* q, int n, int p,
                             void* stream) {
   empty_kernel<<<p, (n + 31) / 32 * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(m), static_cast<float*>(s),
+      static_cast<float*>(q), n, p);
+  return static_cast<int>(cudaGetLastError());
+}
+extern "C" int copy_launch(const void* x, const void* m, void* s, void* q, int n, int p,
+                           void* stream) {
+  copy_kernel<<<p, (n + 31) / 32 * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(m), static_cast<float*>(s),
       static_cast<float*>(q), n, p);
   return static_cast<int>(cudaGetLastError());
@@ -1019,7 +1070,10 @@ extern "C" int empty_launch(const void* x, const void* m, void* s, void* q, int 
 
 def launch_floor(dev, launches=100):
     """The scan probe's device-only time (profiler) and CUDA-event time per
-    launch, beside the same two for an empty kernel launched the same way."""
+    launch, beside the same two for an empty kernel and a copy kernel
+    launched the same way. The probe's bound that a launch can reach (the
+    launch and copy floor) is the larger of its bytes-and-operations bound
+    and the copy's device time; the probe is held against half of it."""
     import ctypes
 
     import torch
@@ -1035,20 +1089,29 @@ def launch_floor(dev, launches=100):
         subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", lib_path, src],
                        check=True, capture_output=True, timeout=300)
         lib = ctypes.CDLL(lib_path)
-    fn = lib.empty_launch
-    fn.argtypes = kernels.KERNELS["scan_probe"][1]
-    fn.restype = ctypes.c_int
     x, m = prast.scan_probe_inputs(dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
 
-    def empty():
-        s, q = torch.empty_like(x), torch.empty_like(m)
-        if fn(x.data_ptr(), m.data_ptr(), s.data_ptr(), q.data_ptr(), x.shape[0], x.shape[1], stream):
-            raise RuntimeError("the empty kernel failed to launch")
+    def bound(symbol):
+        fn = getattr(lib, symbol)
+        fn.argtypes = kernels.KERNELS["scan_probe"][1]
+        fn.restype = ctypes.c_int
 
+        def call():
+            s, q = torch.empty_like(x), torch.empty_like(m)
+            if fn(x.data_ptr(), m.data_ptr(), s.data_ptr(), q.data_ptr(), x.shape[0], x.shape[1], stream):
+                raise RuntimeError(f"{symbol} failed")
+            return s, q
+        return call
+
+    empty, copy = bound("empty_launch"), bound("copy_launch")
+    s, q = copy()
+    if not (torch.equal(s, x) and torch.equal(q, m)):
+        raise RuntimeError("the copy kernel did not copy")
     probe = lambda: prast.scan_probe(x, m)
     res = {}
-    for name, call, key in (("scan_probe", probe, "scan_probe_kernel"), ("empty", empty, "empty_kernel")):
+    for name, call, key in (("scan_probe", probe, "scan_probe_kernel"), ("empty", empty, "empty_kernel"),
+                            ("copy", copy, "copy_kernel")):
         event_ms = cuda_ms(call, launches, warmup=3)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(launches):
@@ -1059,10 +1122,18 @@ def launch_floor(dev, launches=100):
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA and key in e.key
         ]
         res[name] = (event_ms, sum(dev_us) / launches / 1e3 if dev_us else float("nan"))
-    log(f"  launch floor ({launches} launches each, ctypes, {x.shape[1]} blocks of {x.shape[0]} "
-        f"threads): scan probe {res['scan_probe'][0]:.5f} ms by CUDA events, "
+    log(f"  launch floor ({launches} launches each, ctypes; the empty and copy kernels on {x.shape[1]} "
+        f"blocks of {x.shape[0]} threads): scan probe {res['scan_probe'][0]:.5f} ms by CUDA events, "
         f"{res['scan_probe'][1]:.5f} ms on the device (profiler); empty kernel "
-        f"{res['empty'][0]:.5f} ms by CUDA events, {res['empty'][1]:.5f} ms on the device")
+        f"{res['empty'][0]:.5f} ms by CUDA events, {res['empty'][1]:.5f} ms on the device; copy kernel "
+        f"{res['copy'][0]:.5f} ms by CUDA events, {res['copy'][1]:.5f} ms on the device")
+    # kernel_report's bound for the probe: two inputs read and two outputs
+    # written once, one add or multiply per output element.
+    nbytes, ops = 4 * x.numel() * 4, 2 * x.numel()
+    floor = max(nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_FP32_FLOPS * 1e3, res["copy"][1])
+    share = floor / res["scan_probe"][1]
+    log(f"  scan probe against its bound (launch and copy floor) {floor:.5f} ms: {share:.3f} of it on the "
+        f"device, {'at' if share >= 0.5 else 'below'} half of its bound")
     return res
 
 
@@ -2706,6 +2777,705 @@ def multi_gpu(dev, image):
     leftovers_card_vs_cpu(dev, image)
 
 
+# ----------------------------------------------------------------- phase 10
+# The whole training path at garden scale: Mip-NeRF 360 garden at
+# data_factor 4 has 185 images at 1297x840 (test_every 8: 162 train, 23
+# test) and an SfM cloud of about 10^5 points. The real scene is not on the
+# card's machine, so a scene with its widths is built from a seed.
+# Cut to 96 of garden's 185 cameras (cameras are cut first, widths never), so
+# that the phase with its witness, kNN comparison and growth run stays
+# within 300 s (185 cameras took 519 s with the plain kNN searches over
+# every query).
+GARDEN = dict(n_cams=96, width=1296, height=840, n_fg=150_000, n_bg=850_000, n_sfm=100_000,
+              steps=1500, capacity=3_000_000, reset_every=1000)
+# The growth run: the default preset from a sparser mdi init (static
+# stride 40: the depth points of a view 16x fewer), so that densification
+# grows the cloud; its own step count, no reset within it. The Runner
+# regrows an overflowed pair table at its next logged step (every 100 steps):
+# 1,300 steps put one (1,200) after the overflow that the refine at 1,100
+# brings (12 steps after it in a 1,200-step run, NVIDIA H100 80GB HBM3,
+# 700 W).
+GROWTH_STEPS = 1300
+GROWTH_OVERRIDES = ["--init_type=monocular_depth", "--mdi.predictor=stub", "--mdi.use_cache=false",
+                    "--mdi.subsample_factor=40"]
+# The oracle depth is the expected depth of the ground-truth render where
+# alpha >= ORACLE_MIN_ALPHA (NaN elsewhere): at lower alpha it blends the
+# surface with what lies behind it, and the dense surface depth is out of
+# reach at 10^6 gaussians (an 8 GB block per 2,048 pixels).
+ORACLE_MIN_ALPHA = 0.95
+# The foreground cluster: FG_BLOBS spheres of FG_RADIUS within a metre of
+# the origin, so that the SfM points' depths span 1.5-4 m from every camera.
+FG_BLOBS, FG_RADIUS = 8, 0.25
+# SfM registers what it sees: an image observes an SfM point only where
+# the point's depth lies within SFM_VISIBLE_RTOL of the rendered depth at
+# its pixel. write_colmap_scene's own test allows 5%, 12 cm at 2.5 m, half
+# a sphere's radius: it lets in points on a sphere's far side near its
+# rim, hidden behind the visible surface, and a fit over 40 observations
+# with such points comes out ~2% high whichever depth the stub reads
+# (rim_bias_witness holds the exact surface depth to this).
+SFM_VISIBLE_RTOL = 0.002
+# Phase 6a's limit on the recovered scale's median over images. The worst
+# image is printed, not held: on correspondences this close the default
+# RANSAC threshold (squared residual 0.01) takes every point as an inlier,
+# so the first hypothesis is kept, a fit through 4 points, and its scale
+# moves with their depth spread (8% off on one image of 161 with 185
+# cameras, NVIDIA H100 80GB HBM3, 700 W; test_torch_mdi_init.py says the
+# same of exact data).
+SCALE_RTOL = 0.01
+# The eval-only restart must reproduce the run's eval PSNR (PERF.md §2).
+RESTART_PSNR_ATOL = 1e-6
+# The default preset's test_every: 8 (96 views: 84 train, 12 test).
+GARDEN_TEST_EVERY = 8
+# rim_bias_witness evaluates the dense oracle at a view's first this many
+# in-frame SfM points, of which the first 40 that pass the visibility test
+# are its observations, in every WITNESS_STRIDE-th training view.
+WITNESS_CANDIDATES = 512
+WITNESS_STRIDE = 5
+# The kNN scale init against its plain searches: |d^2 - d'^2| within this
+# many float32 ulp of |p|^2 + d^2, the rounding of |x|^2 + |y|^2 - 2 x.y.
+KNN_ULP = 8
+KNN_QUERY_STRIDE = 32
+
+
+def garden_scene(dev, n_cams, width, height, n_fg, n_bg, seed=10):
+    """make_clustered_scene's layout at ~10^6 gaussians: a textured
+    foreground cluster (FG_BLOBS spheres, whose first points become the
+    SfM points: SfM registers surfaces) inside a wall and a ground that
+    every camera sees and no SfM point covers. Each part's gaussians are
+    sized to its mean spacing on its surface, so the views keep texture at
+    pixel scale (1 to 7 px at 1296x840). The ground truth is rendered
+    through the tile compositor (K1, tile 32); its expected depth where
+    alpha >= ORACLE_MIN_ALPHA (NaN elsewhere) is the surface depth.
+    Returns (the scene, its gaussians: means, quats, scales, opacities)."""
+    from gs_init_tpu_torch.datasets.synthetic import SyntheticScene, look_at, render_views
+
+    rng = np.random.default_rng(seed)
+    centres = rng.uniform(-1.0, 1.0, (FG_BLOBS, 3)) * [1.0, 0.5, 1.0]
+    d = rng.normal(size=(n_fg, 3))
+    fg = (d / np.linalg.norm(d, axis=1, keepdims=True) * (FG_RADIUS + rng.normal(0, 0.005, (n_fg, 1)))
+          + centres[rng.integers(0, FG_BLOBS, n_fg)])
+    n_wall = int(n_bg * 0.7)
+    ang = rng.uniform(0, 2 * np.pi, n_wall)
+    r_wall = rng.uniform(5.5, 7.0, n_wall)
+    wall = np.stack([r_wall * np.cos(ang), rng.uniform(-2.2, 2.2, n_wall), r_wall * np.sin(ang)], -1)
+    n_gnd = n_bg - n_wall
+    gr = np.sqrt(rng.uniform(0.15, 1.0, n_gnd)) * 6.5
+    ga = rng.uniform(0, 2 * np.pi, n_gnd)
+    ground = np.stack([gr * np.cos(ga), np.full(n_gnd, 2.3) + rng.normal(0, 0.05, n_gnd), gr * np.sin(ga)], -1)
+    # Mean spacing on the sphere, on the wall's mid surface and on the ground's annulus.
+    spacing = np.repeat(
+        [np.sqrt(FG_BLOBS * 4 * np.pi * FG_RADIUS**2 / n_fg), np.sqrt(2 * np.pi * 6.25 * 4.4 / n_wall),
+         np.sqrt(np.pi * 6.5**2 * 0.85 / n_gnd)], [n_fg, n_wall, n_gnd])
+    pts = np.concatenate([fg, wall, ground])
+    n = len(pts)
+    scales = spacing[:, None] * rng.uniform(0.6, 1.4, (n, 3))
+    rgbs = rng.uniform(0.05, 0.95, (n, 3))
+    quats = rng.normal(size=(n, 4))
+    opac = rng.uniform(0.55, 0.95, n)
+    c2ws = []
+    for i in range(n_cams):
+        a = 2 * np.pi * i / n_cams
+        c2ws.append(look_at(np.array([3 * np.cos(a), -0.4 + 0.5 * np.sin(2 * a), 3 * np.sin(a)]), np.zeros(3)))
+    c2ws = np.stack(c2ws)
+    f = 0.85 * width
+    Ks = np.tile(np.array([[f, 0, width / 2], [0, f, height / 2], [0, 0, 1]]), (n_cams, 1, 1))
+    images, alphas, depths = render_views(pts, quats, scales, opac, rgbs, c2ws, Ks, width, height,
+                                          device=dev, tile_size=32)
+    scene = SyntheticScene(
+        points=pts.astype(np.float32), rgbs=rgbs.astype(np.float32), images=images,
+        camtoworlds=c2ws.astype(np.float32), Ks=Ks.astype(np.float32), width=width, height=height,
+        scene_scale=3.0, depths=depths, alphas=alphas,
+        surface_depths=np.where(alphas >= ORACLE_MIN_ALPHA, depths, np.nan).astype(np.float32),
+    )
+    return scene, (pts, quats, scales, opac)
+
+
+def sfm_visible_depth(scene, n_sfm):
+    """The surface depth that write_colmap_scene tests the first n_sfm
+    points against (it reads it only at their pixels), NaN at each pixel
+    where one of them lies more than SFM_VISIBLE_RTOL off it."""
+    sfm = scene.points[:n_sfm].astype(np.float64)
+    k0 = scene.Ks[0]
+    visible = scene.surface_depths.copy()
+    for i, c2w in enumerate(scene.camtoworlds):  # write_colmap_scene's projection
+        w2c = np.linalg.inv(c2w.astype(np.float64))
+        cam = sfm @ w2c[:3, :3].T + w2c[:3, 3]
+        pix = (cam[:, :2] / cam[:, 2:3]) @ k0[:2, :2].T + k0[:2, 2]
+        ok = ((cam[:, 2] > 0) & (pix[:, 0] >= 0) & (pix[:, 0] < scene.width) & (pix[:, 1] >= 0)
+              & (pix[:, 1] < scene.height))
+        xi, yi = pix[ok, 0].astype(np.int64), pix[ok, 1].astype(np.int64)
+        surf = scene.surface_depths[i][yi, xi]
+        off = ~(np.abs(cam[ok, 2] - surf) <= SFM_VISIBLE_RTOL * surf)
+        visible[i][yi[off], xi[off]] = np.nan
+    return visible
+
+
+def surface_depth_at(gaussians, c2w, K, width, height, pix, dev, chunk=512):
+    """render_surface_depth's depth, of the gaussian with the largest
+    compositing weight, at the pixels pix [P, 2] (integer x, y) of one
+    view: the dense oracle at those pixels only."""
+    import torch
+    from gs_init_tpu_torch.ops.projection import project_gaussians
+    from gs_init_tpu_torch.ops.rasterize_ref import alpha_at, depth_order
+
+    t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    with torch.no_grad():
+        proj = project_gaussians(*(t(x) for x in gaussians), torch.linalg.inv(t(c2w))[None], t(K)[None],
+                                 width, height)
+        valid = proj.radii[0] > 0
+        order = depth_order(proj.depths[0], valid)[: int(valid.sum())]
+        m2d, con, op, dep = (x[0][order] for x in (proj.means2d, proj.conics, proj.opacities, proj.depths))
+        live = torch.ones(len(order), dtype=torch.bool, device=dev)
+        centres = t(np.asarray(pix) + 0.5)
+        out = []
+        for s in range(0, len(centres), chunk):
+            alpha = alpha_at(m2d, con, op, live, centres[s : s + chunk])
+            log1m = torch.log1p(-alpha)
+            w = alpha * torch.exp(torch.cumsum(log1m, dim=0) - log1m)
+            out.append(dep[torch.argmax(w, dim=0)])
+        return torch.cat(out).cpu().numpy()
+
+
+def rim_bias_witness(scene, gaussians, n_sfm, k, dev):
+    """SFM_VISIBLE_RTOL's cause, shown against the exact surface. Each
+    view's observations are its first 40 in-frame SfM points whose depth
+    lies within a tolerance of a surface depth at their pixel (the test of
+    write_colmap_scene), and the package's points_from_depth fits the
+    stub's prediction (0.37 depth + 1.3) of that surface depth over them,
+    by RANSAC with the package defaults and by least squares. Three arms:
+    the expected depth at alpha >= ORACLE_MIN_ALPHA with the 5% test (the
+    scene as write_colmap_scene alone would write it); the exact surface
+    depth (the dense oracle at the first WITNESS_CANDIDATES in-frame
+    points' pixels only) with the 5% test; the exact surface depth with
+    SFM_VISIBLE_RTOL. In the parser's world (depths times its similarity
+    scale k), as the init runs. Returns {(arm, method): the median of the
+    recovered scale over the stub's}, the median of (z - surface) / surface
+    over the 5% test's observations of the exact surface, and the views."""
+    import torch
+    from gs_init_tpu_torch.mdi.points_from_depth import points_from_depth
+
+    width, height = scene.width, scene.height
+    sfm = scene.points[:n_sfm].astype(np.float64)
+    T = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    arms = (("expected depth, 5%", 0.05), ("exact depth, 5%", 0.05), ("exact depth, visible", SFM_VISIBLE_RTOL))
+    ratios = {(arm, m): [] for arm, _ in arms for m in ("ransac", "lstsqrs")}
+    behind = []
+    views = [i for i in range(len(scene.camtoworlds)) if i % GARDEN_TEST_EVERY][::WITNESS_STRIDE]
+    for i in views:
+        c2w = scene.camtoworlds[i].astype(np.float64)
+        w2c = np.linalg.inv(c2w)
+        cam = sfm @ w2c[:3, :3].T + w2c[:3, 3]
+        pix = (cam[:, :2] / cam[:, 2:3]) @ scene.Ks[i][:2, :2].T + scene.Ks[i][:2, 2]
+        cand = np.where((cam[:, 2] > 0) & (pix[:, 0] >= 0) & (pix[:, 0] < width) & (pix[:, 1] >= 0)
+                        & (pix[:, 1] < height))[0][:WITNESS_CANDIDATES]
+        xy = pix[cand].astype(np.int64)
+        exact = np.full((height, width), np.nan, np.float32)
+        exact[xy[:, 1], xy[:, 0]] = surface_depth_at(gaussians, c2w, scene.Ks[i], width, height, xy, dev)
+        c2w_k = c2w.copy()
+        c2w_k[:3, 3] *= k
+        for arm, rtol in arms:
+            depth = scene.surface_depths[i] if arm.startswith("expected") else exact
+            surf = depth[xy[:, 1], xy[:, 0]]
+            near = np.abs(cam[cand, 2] - surf) < rtol * np.maximum(surf, 1e-6)
+            sel = cand[near][:40]
+            if arm == "exact depth, 5%":
+                behind.extend(((cam[cand, 2] - surf) / surf)[near][:40])
+            if len(sel) < 4:
+                continue
+            pred = 0.37 * k * depth + 1.3
+            mask = np.isfinite(pred)
+            for method in ("ransac", "lstsqrs"):
+                out = points_from_depth(
+                    T(np.where(mask, pred, 0.0)), torch.as_tensor(mask, device=dev), T(c2w_k), T(scene.Ks[i]),
+                    T(sfm[sel] * k), torch.ones(len(sel), dtype=torch.bool, device=dev), generator=gen,
+                    width=width, height=height, align_method=method)
+                ratios[(arm, method)].append(float(out.scale) * 0.37)
+    return {key: float(np.median(v)) for key, v in ratios.items()}, float(np.median(behind)), len(views)
+
+
+def knn_comparison(points, k=3, chunk=2048):
+    """The kNN scale init (the package's mean_knn_dist) beside two plain
+    searches over the same cloud: the earlier brute force ([chunk, N] blocks of
+    |x|^2 + |y|^2 - 2 x.y, one top-k over N each) and the blocked running
+    top-k knn(points, points, k + 1). Each plain search scans every point
+    for every block of chunk queries, the same work for each block, so it
+    runs on every KNN_QUERY_STRIDE-th block of queries against the whole
+    cloud and its time is scaled to all blocks. Returns {name: (seconds for
+    the cloud, seconds measured, peak GiB above what was held, the result
+    on the sampled queries)}."""
+    import torch
+    from gs_init_tpu_torch.ops import knn as pknn
+
+    dev = points.device
+    n_blocks = -(-len(points) // chunk)
+    every = torch.arange(len(points), device=dev)
+    sample = torch.cat([every[b * chunk : (b + 1) * chunk] for b in range(0, n_blocks, KNN_QUERY_STRIDE)])
+    share = len(range(0, n_blocks, KNN_QUERY_STRIDE)) / n_blocks
+
+    def brute(q, p):
+        p_sq = (p * p).sum(-1)
+        out = []
+        for s in range(0, q.shape[0], chunk):
+            qb = q[s : s + chunk]
+            d2 = (qb * qb).sum(-1, keepdim=True) - 2.0 * qb @ p.T + p_sq[None, :]
+            out.append(torch.topk(d2, k + 1, dim=1, largest=False).values.clamp(min=0.0))
+        return torch.sqrt(torch.cat(out, 0)[:, 1:].mean(-1))
+
+    def blocked(q, p):
+        d, _ = pknn.knn(q, p, k + 1, chunk=chunk)
+        return torch.sqrt((d[:, 1:] ** 2).mean(-1))
+
+    res = {}
+    for name, fn, part in (("mean_knn_dist", lambda q, p: pknn.mean_knn_dist(p, k=k)[sample], 1.0),
+                           ("brute force", brute, share), ("knn", blocked, share)):
+        q = points if part == 1.0 else points[sample]
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        out = fn(q, points)
+        torch.cuda.synchronize(dev)
+        secs = time.perf_counter() - t0
+        res[name] = (secs / part, secs, (torch.cuda.max_memory_allocated(dev) - base) / 2**30, out)
+    return res, sample
+
+
+def growth_run(data_dir, res, card, dev, capacity, mdi_model):
+    """Phase 10's growth run: the garden scene through the default preset
+    at the same capacity from a sparser mdi init (GROWTH_OVERRIDES, with
+    `mdi_model` over the same oracle), for GROWTH_STEPS steps, so that
+    densification must grow the cloud and the pair table must follow it.
+    Prints the alive count after each refine, the retunes and the
+    overflowed steps; returns a failure unless the alive count more than
+    doubles across the refines within the capacity and a retune grows the
+    pair table after a refine."""
+    import torch
+    from gs_init_tpu_torch import trainer
+    from gs_init_tpu_torch.config import parse_cli
+    from gs_init_tpu_torch.engine import runner as prunner
+    from gs_init_tpu_torch.engine.strategy import default as dstrat
+
+    say = lambda s: log(f"  [{card}] growth run: {s}")
+    steps = GROWTH_STEPS
+    cfg = parse_cli(["default", f"--data_dir={data_dir}", "--data_factor=1", f"--result_dir={res}",
+                     f"--max_gaussians={capacity}", f"--max_steps={steps}", f"--eval_steps=[{steps}]",
+                     f"--save_steps=[{steps}]", *GROWTH_OVERRIDES], trainer.build_presets())
+    cfg.adjust_steps()
+    refines, retunes, overflow = [], [], []
+    real_refine = dstrat.refine
+
+    def timed_refine(*a, **kw):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = real_refine(*a, **kw)
+        torch.cuda.synchronize(dev)
+        refines.append(dict(step=a[-1], ms=(time.perf_counter() - t0) * 1e3, alive=int(out[0].alive.sum())))
+        return out
+
+    dstrat.refine = timed_refine
+    try:
+        t0 = time.perf_counter()
+        runner = prunner.Runner(cfg, device=dev, mdi_model=mdi_model)
+        n0 = int(runner.gstate.alive.sum())
+        real_iter, real_retune = runner.train_iteration, runner._maybe_retune_capacity
+
+        def counted_iter(step):
+            m = real_iter(step)
+            overflow.append(m["overflow"])
+            return m
+
+        def counted_retune(metrics, step, **kw):
+            cap = cfg.pair_capacity
+            real_retune(metrics, step, **kw)
+            if cfg.pair_capacity != cap:
+                retunes.append((step, cap, cfg.pair_capacity))
+
+        runner.train_iteration, runner._maybe_retune_capacity = counted_iter, counted_retune
+        t1 = time.perf_counter()
+        stats = runner.train()
+        torch.cuda.synchronize(dev)
+        t2 = time.perf_counter()
+    finally:
+        dstrat.refine = real_refine
+    n_over = int((torch.stack(overflow) > 0).sum())
+    alive = [r["alive"] for r in refines]
+    say(f"{' '.join(GROWTH_OVERRIDES)}: {n0} gaussians at the init (set-up {t1 - t0:.3f} s); {steps} steps "
+        f"in {t2 - t1:.3f} s ({steps / (t2 - t1):.3f} steps/s, refines, final eval and checkpoint inside); loss "
+        f"{stats['loss']:.5f} at the end; peak memory {stats['mem_peak_gb']:.3f} GiB")
+    say("refines (step: ms, alive after): " + ", ".join(f"{r['step']}: {r['ms']:.3f}, {r['alive']}" for r in refines))
+    say(f"pair capacity: {len(retunes)} retunes {retunes}; {n_over} steps overflowed their table")
+    grown = [r for r in retunes if r[2] > r[1] and refines and r[0] > refines[0]["step"]]
+    del runner
+    torch.cuda.empty_cache()
+    if not (alive and alive[-1] > 2 * n0 and max(alive) <= capacity and grown):
+        return [f"growth run: alive {n0} -> {alive} within {capacity}, retunes {retunes}: the cloud did not "
+                "double, or no retune grew the pair table after a refine"]
+    return []
+
+
+def garden_path(dev, card, n_cams, width, height, n_fg, n_bg, n_sfm, steps, capacity, reset_every):
+    """Phase 10: the whole path at garden scale through the entry points a
+    user calls. The config from parse_cli with the default preset and
+    override strings; Runner(cfg, parser, mdi_model=...).train(), built as
+    trainer.run_with_config builds it (trainer.main takes no predictor
+    object), with the stub over the oracle depth; the eval-only restart
+    through trainer.main(["--ckpt", ...]). The timers wrap the package's
+    functions for this phase only. Every printed number carries `card`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from gs_init_tpu_torch import kernels, trainer
+    from gs_init_tpu_torch.config import parse_cli
+    from gs_init_tpu_torch.datasets.parser import Parser
+    from gs_init_tpu_torch.datasets.synthetic import write_colmap_scene
+    from gs_init_tpu_torch.engine import params as pparams
+    from gs_init_tpu_torch.engine import runner as prunner
+    from gs_init_tpu_torch.engine.strategy import default as dstrat
+
+    now = time.perf_counter
+    sync = lambda: torch.cuda.synchronize(dev)
+    peaks = []  # GiB, one per stretch between resets of the peak statistics
+
+    def new_peak():
+        sync()
+        peaks.append(torch.cuda.max_memory_allocated(dev) / 2**30)
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    say = lambda s: log(f"  [{card}] {s}")
+    patches = []
+
+    def patch(obj, name, fn):
+        patches.append((obj, name, getattr(obj, name)))
+        setattr(obj, name, fn)
+
+    t_phase = now()
+    new_peak()
+    failures = []
+    env_before = os.environ.get("GS_TPU_CHECKPOINT_DIR")
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            # The scene.
+            t0 = now()
+            scene, gaussians = garden_scene(dev, n_cams, width, height, n_fg, n_bg)
+            t1 = now()
+            data_dir = write_colmap_scene(
+                tmp, scene._replace(surface_depths=sfm_visible_depth(scene, n_sfm)), n_points=n_sfm)
+            t2 = now()
+            say(f"scene: {n_cams} cameras at {width}x{height}, {len(scene.points)} gaussians, {n_sfm} SfM "
+                f"points (the foreground only); rendered through K1 in {t1 - t0:.3f} s, {n_cams} PNGs and "
+                f"the COLMAP model written in {t2 - t1:.3f} s; pixels with alpha >= {ORACLE_MIN_ALPHA}: "
+                f"{float(np.mean(scene.alphas >= ORACLE_MIN_ALPHA)):.4f}")
+            ckpt_dir = os.path.join(tmp, "lpips")
+            os.makedirs(ckpt_dir)
+            write_lpips_weights(ckpt_dir)
+            os.environ["GS_TPU_CHECKPOINT_DIR"] = ckpt_dir
+
+            res = os.path.join(tmp, "run")
+            argv = ["default", f"--data_dir={data_dir}", "--data_factor=1", f"--result_dir={res}",
+                    "--init_type=monocular_depth", "--mdi.predictor=stub", "--mdi.use_cache=false",
+                    f"--max_gaussians={capacity}", f"--max_steps={steps}", f"--eval_steps=[{steps}]",
+                    f"--save_steps=[{steps}]", f"--strategy.reset_every={reset_every}"]
+            cfg = parse_cli(argv, trainer.build_presets())
+            cfg.adjust_steps()
+            s = cfg.strategy
+            refine_steps = [k for k in range(steps) if s.refine_start_iter < k < s.refine_stop_iter
+                            and k % s.refine_every == 0 and k % s.reset_every >= s.pause_refine_after_reset]
+            reset_steps = [k for k in range(1, min(steps, s.refine_stop_iter)) if k % s.reset_every == 0]
+
+            # The init, timed: the stub's predictions, each image's alignment
+            # and unprojection (synchronised), the rest on the host; the kNN
+            # scale init with its own peak memory.
+            t0 = now()
+            parser = Parser(data_dir, factor=1, test_every=cfg.test_every)
+            want_scale = float(np.cbrt(np.linalg.det(parser.transform[:3, :3]))) / 0.37
+            stub = TimedPredictor(surface_depth_stub(scene, parser))
+            init, knns = {}, []
+            real_mdi, real_knn = prunner.pts_and_rgb_from_monocular_depth, pparams.mean_knn_dist
+
+            def timed_mdi(*a, **kw):
+                per = []
+                ta = now()
+                out = real_mdi(*a, per_image=per, **kw)
+                sync()
+                init.update(seconds=now() - ta, per_image=per, points=len(out[0]))
+                return out
+
+            def timed_knn(points, *a, **kw):
+                new_peak()
+                base = torch.cuda.memory_allocated(dev) / 2**30
+                ta = now()
+                out = real_knn(points, *a, **kw)
+                sync()
+                knns.append(dict(points=points, seconds=now() - ta, base=base,
+                                 peak=torch.cuda.max_memory_allocated(dev) / 2**30))
+                return out
+
+            patch(prunner, "pts_and_rgb_from_monocular_depth", timed_mdi)
+            patch(pparams, "mean_knn_dist", timed_knn)
+            runner = prunner.Runner(cfg, parser=parser, mdi_model=stub, device=dev)
+            sync()
+            t_setup = now() - t0
+            n0 = int(runner.gstate.alive.sum())
+            per = init["per_image"]
+            n_img = len(per)
+            align = sum(r["seconds"] for r in per)
+            ratio = np.array([r["scale"] for r in per]) / want_scale
+            worst = float(ratio[np.argmax(np.abs(ratio - 1))])
+            kn = knns[0]
+            say(f"init: {n_img} of {len(parser.split_indices('train'))} training images aligned in "
+                f"{init['seconds']:.3f} s, per image {init['seconds'] / n_img:.4f} s: "
+                f"predict {stub.seconds / n_img:.4f}, align and unproject {align / n_img:.4f}, host (decode, "
+                f"masks, post-processing) {(init['seconds'] - stub.seconds - align) / n_img:.4f}; "
+                f"{init['points']} points out; scale / (similarity scale / 0.37): median "
+                f"{float(np.median(ratio)):.5f}, worst {worst:.5f}")
+            say(f"kNN scale init: {len(kn['points'])} points in {kn['seconds']:.3f} s, peak {kn['peak']:.3f} GiB "
+                f"({kn['base']:.3f} GiB held before it); Runner set-up {t_setup:.3f} s in all, "
+                f"{n0} gaussians alive of {capacity}")
+            if abs(float(np.median(ratio)) - 1) > SCALE_RTOL:
+                failures.append(f"the median recovered scale is {float(np.median(ratio)):.5f} of the stub's")
+            t0 = now()
+            k_sim = float(np.cbrt(np.linalg.det(parser.transform[:3, :3])))
+            wit, behind, n_views = rim_bias_witness(scene, gaussians, n_sfm, k_sim, dev)
+            arms = dict.fromkeys(a for a, _ in wit)
+            say(f"rim-bias witness ({n_views} training views, 40 observations each, {now() - t0:.3f} s): median "
+                f"scale / the stub's, RANSAC / least squares: " + ", ".join(
+                    f"{a} {wit[(a, 'ransac')]:.5f} / {wit[(a, 'lstsqrs')]:.5f}" for a in arms)
+                + f" (visible: within {SFM_VISIBLE_RTOL}); the 5% test's observations lie a median {behind:.5f} "
+                "of the exact surface depth behind it")
+            growth_stub = surface_depth_stub(scene, parser)
+            del scene, gaussians
+            if any(abs(wit[("exact depth, visible", m)] - 1) > SCALE_RTOL for m in ("ransac", "lstsqrs")):
+                failures.append("the exact surface depth over the visible observations does not recover the "
+                                "stub's scale")
+            cmp, sample = knn_comparison(kn["points"])
+            want_d = cmp["mean_knn_dist"][3].double()
+            p_sq = (kn["points"][sample].double() ** 2).sum(-1)
+            ulp = float(np.finfo(np.float32).eps) * (p_sq + want_d**2)
+            gap = {name: float(((out.double() ** 2 - want_d**2).abs() / ulp).max())
+                   for name, (_, _, _, out) in cmp.items() if name != "mean_knn_dist"}
+            say(f"kNN over the init cloud ({len(kn['points'])} points; the plain searches on {len(sample)} of the "
+                f"queries, every {KNN_QUERY_STRIDE}th block, scaled to all): " + ", ".join(
+                    f"{name} {full:.3f} s ({secs:.3f} s measured), peak {peak:.3f} GiB above"
+                    for name, (full, secs, peak, _) in cmp.items())
+                + "; |d^2 - mean_knn_dist's| in float32 ulp of |p|^2 + d^2, max: "
+                + ", ".join(f"{name} {g:.2f}" for name, g in gap.items()))
+            del cmp, kn
+            if any(g > KNN_ULP for g in gap.values()):
+                failures.append(f"mean_knn_dist disagrees with its plain searches ({gap} ulp)")
+
+            # Eval: render, the metrics and LPIPS timed; renders and the
+            # overflow re-renders counted.
+            ev = dict(render=[], metrics=[], lpips=[], calls=0)
+            real_render, real_rast = runner.render, prunner.rasterize
+
+            def timed_render(*a, **kw):
+                ta = now()
+                out = real_render(*a, **kw)  # numpy out: synchronised
+                ev["render"].append(now() - ta)
+                return out
+
+            def counted_rast(*a, **kw):
+                ev["calls"] += 1
+                return real_rast(*a, **kw)
+
+            def timer(fn, key):
+                def f(*a, **kw):
+                    sync()
+                    ta = now()
+                    out = fn(*a, **kw)
+                    sync()
+                    ev[key].append(now() - ta)
+                    return out
+                return f
+
+            runner.render = timed_render
+            patch(prunner, "rasterize", counted_rast)
+            patch(prunner, "psnr", timer(prunner.psnr, "metrics"))
+            patch(prunner, "ssim", timer(prunner.ssim, "metrics"))
+            patch(prunner, "lpips", timer(prunner.lpips, "lpips"))
+            psnr0 = runner.eval(0)["psnr"]
+            for k in ev:
+                ev[k] = [] if isinstance(ev[k], list) else 0
+
+            # Training, with every step's loss and overflow kept on the card,
+            # the segments between refines timed, a profiler window of 3
+            # steps after the last refine, each refine, reset and retune.
+            rec = dict(loss=[], overflow=[], mark={}, refine=[], reset=[], retune=[], prof=None)
+            marks = set([0] + refine_steps)
+            at = max(refine_steps[-1] + 1 if refine_steps else 0, steps - 20)
+            real_iter, real_retune, real_save = runner.train_iteration, runner._maybe_retune_capacity, runner.save
+
+            def hooked(step):
+                if step in marks:
+                    sync()
+                    rec["mark"][step] = now()
+                if step == at:
+                    sync()
+                    rec["prof_t"] = now()  # its start-up counted in the window
+                    rec["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                    rec["prof"].__enter__()
+                m = real_iter(step)
+                rec["loss"].append(m["loss"].detach())
+                rec["overflow"].append(m["overflow"])
+                if step == at + 2:
+                    sync()
+                    rec["prof"].__exit__(None, None, None)
+                    rec["prof_wall"] = now() - rec["prof_t"]  # its teardown too
+                if step == steps - 1:
+                    sync()
+                    rec["mark"][steps] = now()
+                return m
+
+            def timed_refine(*a, **kw):
+                sync()
+                ta = now()
+                out = real_refine(*a, **kw)
+                sync()
+                rec["refine"].append(dict(step=a[-1], ms=(now() - ta) * 1e3, alive=int(out[0].alive.sum()),
+                                          **out[3]))
+                return out
+
+            def timed_reset(*a, **kw):
+                sync()
+                ta = now()
+                out = real_reset(*a, **kw)
+                sync()
+                rec["reset"].append((now() - ta) * 1e3)
+                return out
+
+            def counted_retune(metrics, step, **kw):
+                cap = cfg.pair_capacity
+                real_retune(metrics, step, **kw)
+                if cfg.pair_capacity != cap:
+                    rec["retune"].append((step, cap, cfg.pair_capacity))
+
+            def timed_save(step):
+                ta = now()
+                path = real_save(step)
+                rec["save_s"] = now() - ta
+                return path
+
+            real_refine, real_reset = dstrat.refine, dstrat.reset_opacities
+            patch(dstrat, "refine", timed_refine)
+            patch(dstrat, "reset_opacities", timed_reset)
+            runner.train_iteration, runner._maybe_retune_capacity, runner.save = hooked, counted_retune, timed_save
+            n_val = len(runner.valset)
+            new_peak()
+            kernels.reset_launch_counts()
+            t0 = now()
+            stats = runner.train()
+            sync()
+            t_train = now() - t0
+            launches = dict(stats["kernel_launches"])
+            losses = torch.stack(rec["loss"]).float().cpu().numpy()
+            overflowed = int((torch.stack(rec["overflow"]) > 0).sum())
+            with open(os.path.join(res, "stats", f"val_step{steps}.json")) as f:
+                val = json.load(f)
+            alive = [r["alive"] for r in rec["refine"]]
+
+            # Steps per second of each segment, its refines and the profiler
+            # window taken out.
+            bounds = sorted(rec["mark"])
+            seg = []
+            for a, b in zip(bounds, bounds[1:]):
+                secs = rec["mark"][b] - rec["mark"][a]
+                secs -= sum(r["ms"] for r in rec["refine"] if a <= r["step"] < b) / 1e3
+                secs -= sum(ms for k, ms in zip(reset_steps, rec["reset"]) if a <= k < b) / 1e3
+                n_steps = b - a
+                if a <= at < b:
+                    secs -= rec["prof_wall"]
+                    n_steps -= 3
+                seg.append((a, b, n_steps / secs, secs * 1e3 / n_steps))
+            say(f"train: {steps} steps in {t_train:.3f} s (final eval and checkpoint inside); loss "
+                f"{losses[0]:.5f} -> {losses[-1]:.5f}, finite at every step: {bool(np.isfinite(losses).all())}")
+            say("steps/s (ms/step) by segment, refines and the profiler window taken out: " + ", ".join(
+                f"[{a}, {b}) {r:.3f} ({ms:.3f})" for a, b, r, ms in seg))
+            say("refines (step: ms, alive after, duplicated / split / pruned): " + ", ".join(
+                f"{r['step']}: {r['ms']:.3f}, {r['alive']}, {r['n_dup']}/{r['n_split']}/{r['n_pruned']}"
+                for r in rec["refine"]) + f"; opacity resets at {reset_steps}: "
+                + ", ".join(f"{ms:.3f} ms" for ms in rec["reset"]))
+            say(f"pair capacity: {len(rec['retune'])} retunes {rec['retune']}, {cfg.pair_capacity} at the end; "
+                f"{overflowed} steps overflowed their table (their pairs past it dropped, as the JAX Runner "
+                f"does); 0 steps redone (the Runner redoes none)")
+            rows = cuda_rows(rec["prof"], 3)
+            if not rows:
+                raise RuntimeError("phase 10: the profiler saw no device time")
+            busy_ms = sum(r[0] for r in rows)
+            last_ms = seg[-1][3]
+            idle = max(0.0, 1 - busy_ms / last_ms)
+            say(f"profiler (steps {at}-{at + 2}, {alive[-1] if alive else n0} alive): device busy "
+                f"{busy_ms:.3f} ms/step, idle share {idle:.3f} of the unprofiled {last_ms:.3f} ms step; "
+                f"top kernels by device time:")
+            for ms, cnt, key in rows[:8]:
+                log(f"    {ms:9.3f} ms/step  x{cnt:<4d} {key[:110]}")
+            rr = ev["calls"] - n_val
+            say(f"eval at {steps} ({n_val} images): PSNR {psnr0:.4f} (initial gaussians) -> {val['psnr']:.4f}, "
+                f"SSIM {val['ssim']:.4f}, LPIPS {val.get('lpips', float('nan')):.4f} (random weights, for its "
+                f"time), {val['num_GS']} gaussians; ms per image: render {1e3 * np.mean(ev['render']):.3f}, "
+                f"PSNR and SSIM {1e3 * np.sum(ev['metrics']) / n_val:.3f}, LPIPS "
+                f"{1e3 * np.sum(ev['lpips']) / n_val:.3f}; {rr} overflow re-renders")
+            ckpt = os.path.join(res, "ckpts", f"ckpt_{steps}.npz")
+            nbytes = os.path.getsize(ckpt)
+            want = dict(composite_fwd=steps + ev["calls"], composite_bwd=steps, scan_probe=1)
+            say(f"launches in train() {json.dumps(launches)} (want {json.dumps(want)}: one K1 and K2 per step, "
+                f"K1 once per eval render and re-render, the scan probe once for the step function); "
+                f"peak memory in train() {stats.get('mem_peak_gb', float('nan')):.3f} GiB")
+            del runner, stub
+            torch.cuda.empty_cache()
+            new_peak()
+
+            # The eval-only restart through the trainer's entry point.
+            loads = []
+            real_load = prunner.Runner.load
+
+            def timed_load(self, path):
+                ta = now()
+                out = real_load(self, path)
+                sync()
+                loads.append(now() - ta)
+                return out
+
+            patch(prunner.Runner, "load", timed_load)
+            restart_argv = ["default", f"--data_dir={data_dir}", "--data_factor=1", f"--result_dir={res}_restart",
+                            f"--max_gaussians={capacity}", f"--pair_capacity={cfg.pair_capacity}",
+                            f"--ckpt=[{ckpt}]"]
+            t0 = now()
+            trainer.main(restart_argv, device=dev)
+            sync()
+            t_restart = now() - t0
+            with open(os.path.join(f"{res}_restart", "stats", f"val_step{steps}.json")) as f:
+                psnr_re = json.load(f)["psnr"]
+            new_peak()
+            say(f"checkpoint: {nbytes} bytes, saved in {rec['save_s']:.3f} s, loaded in {loads[0]:.3f} s; "
+                f"eval-only restart (trainer.main --ckpt: set-up, load, eval, trajectory) {t_restart:.3f} s, "
+                f"PSNR {psnr_re:.6f} (|diff| {abs(psnr_re - val['psnr']):.2e})")
+            if len(losses) != steps or not np.isfinite(losses).all():
+                failures.append("a non-finite loss")
+            if not (len(alive) == len(refine_steps) > 1 and max(alive + [n0]) <= capacity and alive[-1] > alive[0]):
+                failures.append(f"alive {n0} -> {alive} did not rise across the refines within the capacity "
+                                f"{capacity}")
+            if not val["psnr"] > psnr0:
+                failures.append(f"eval PSNR {val['psnr']:.4f} does not beat the initial {psnr0:.4f}")
+            if any(launches[k] != v for k, v in want.items()):
+                failures.append(f"launches {launches}, not {want}")
+            if abs(psnr_re - val["psnr"]) > RESTART_PSNR_ATOL:
+                failures.append("the eval-only restart did not reproduce the run's PSNR")
+            failures += growth_run(data_dir, os.path.join(tmp, "growth"), card, dev, capacity, growth_stub)
+            new_peak()
+            say(f"peak memory {max(peaks):.3f} GiB; phase 10 took {now() - t_phase:.1f} s")
+            if failures:
+                raise RuntimeError("phase 10: " + "; ".join(failures))
+            return dict(busy_ms=busy_ms, idle=idle)
+        finally:
+            for obj, name, fn in reversed(patches):
+                setattr(obj, name, fn)
+            if env_before is None:
+                os.environ.pop("GS_TPU_CHECKPOINT_DIR", None)
+            else:
+                os.environ["GS_TPU_CHECKPOINT_DIR"] = env_before
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -2800,6 +3570,10 @@ def main():
     t9 = time.perf_counter()
     multi_gpu(dev, image9)
     log(f"  phase 9 took {time.perf_counter() - t9:.1f} s")
+    torch.cuda.empty_cache()
+
+    log(f"phase 10: the whole path at garden scale ({time.perf_counter() - t_start:.1f} s)")
+    garden_path(dev, card, **GARDEN)
 
     log(f"total {time.perf_counter() - t_start:.3f} s")
     log(card)

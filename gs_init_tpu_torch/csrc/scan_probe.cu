@@ -10,85 +10,66 @@
 //   sum[r, c]  = sum_{j < r} x[j, c]    (0 at r = 0)
 //   prod[r, c] = prod_{j < r} m[j, c]   (1 at r = 0)
 //
-// Bound on this card: memory latency. The probe's 4 arrays of 64 KB are
-// 256 KB of traffic and 32k operations; the launch itself dominates.
-// Design: one block per column, one thread per row. Each warp scans its 32
-// rows with __shfl_up_sync (log2(32) steps, the warp form of the
-// Hillis-Steele scan); warp 0 then scans the per-warp totals held in shared
-// memory, and each thread combines its warp's prefix with its own inclusive
-// value shifted down by one lane to form the exclusive result. Sum and
-// product ride the same pass.
+// Bound on this card: the launch. The probe's 4 arrays of 64 KB are 256 KB
+// of traffic and 32k operations; a copy of its inputs to its outputs takes
+// 1.3 us on the device, which is its bound (the launch and copy floor,
+// chip_smoke.py phase 4).
+// Design: threads along columns. A block takes COLS consecutive columns
+// and SEGS segments of rows: thread (c, g) walks the rows of segment g of
+// its column, so a warp's load or store touches COLS consecutive floats of
+// each of 32 / COLS rows, whole 32-byte sectors (the first design put one
+// column per block and one row per thread, each warp reading 32 rows with
+// a stride of p floats, and sat at half of the floor). A first pass
+// reduces each segment, sum and product together; the SEGS totals of a
+// column meet in shared memory; each thread then starts from the totals
+// of the segments above its own and writes the exclusive scan of its
+// rows, re-reading them from L1. The work is a chain of dependent adds
+// and multiplies, so short segments win: at [128, 128], 32 segments of 4
+// rows in 16 blocks of 8 columns.
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int MAX_ROWS = 1024;
-constexpr unsigned FULL = 0xffffffffu;
+constexpr int COLS = 8;
+constexpr int SEGS = 32;
 
-struct Add {
-  static __device__ __forceinline__ float id() { return 0.f; }
-  __device__ __forceinline__ float operator()(float a, float b) const {
-    return a + b;
-  }
-};
-
-struct Mul {
-  static __device__ __forceinline__ float id() { return 1.f; }
-  __device__ __forceinline__ float operator()(float a, float b) const {
-    return a * b;
-  }
-};
-
-// Inclusive scan of v across the 32 lanes of a warp.
-template <class Op>
-__device__ __forceinline__ float warp_inclusive(float v, Op op) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const float u = __shfl_up_sync(FULL, v, o);
-    if (lane >= o) v = op(u, v);
-  }
-  return v;
-}
-
-// Exclusive scan of v over the block's threads in thread order. `tot` is
-// shared scratch of 32 floats; every thread of the block must call this.
-template <class Op>
-__device__ __forceinline__ float block_exclusive(float v, Op op, float* tot) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const float incl = warp_inclusive(v, op);
-  if (lane == 31) tot[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    const float w = lane < nwarps ? tot[lane] : Op::id();
-    const float wi = warp_inclusive(w, op);
-    // Exclusive prefix of the warp totals: warp i starts after warps < i.
-    const float we = __shfl_up_sync(FULL, wi, 1);
-    tot[lane] = lane == 0 ? Op::id() : we;
-  }
-  __syncthreads();
-  const float prev = __shfl_up_sync(FULL, incl, 1);
-  const float r = lane == 0 ? tot[warp] : op(tot[warp], prev);
-  __syncthreads();  // tot is reused by the caller's next scan
-  return r;
-}
-
-__global__ void __launch_bounds__(MAX_ROWS)
+__global__ void __launch_bounds__(COLS * SEGS)
 scan_probe_kernel(const float* __restrict__ x, const float* __restrict__ m,
                   float* __restrict__ sum, float* __restrict__ prod, int n,
                   int p) {
-  __shared__ float tot[32];
-  const int c = blockIdx.x, r = threadIdx.x;
-  const bool in = r < n;
-  const size_t at = (size_t)r * p + c;
-  const float xs = in ? x[at] : Add::id();
-  const float ms = in ? m[at] : Mul::id();
-  const float s = block_exclusive(xs, Add(), tot);
-  const float q = block_exclusive(ms, Mul(), tot);
-  if (in) {
-    sum[at] = s;
-    prod[at] = q;
+  __shared__ float tot_s[SEGS][COLS];
+  __shared__ float tot_p[SEGS][COLS];
+  const int cx = threadIdx.x, g = threadIdx.y;
+  const int c = blockIdx.x * COLS + cx;
+  const int len = (n + SEGS - 1) / SEGS;
+  const int r0 = min(n, g * len), r1 = min(n, r0 + len);
+  const bool col = c < p;
+  float s = 0.f, q = 1.f;
+  if (col) {
+    for (int r = r0; r < r1; ++r) {
+      const size_t at = (size_t)r * p + c;
+      s += x[at];
+      q *= m[at];
+    }
+  }
+  tot_s[g][cx] = s;
+  tot_p[g][cx] = q;
+  __syncthreads();
+  s = 0.f;
+  q = 1.f;
+  for (int h = 0; h < g; ++h) {
+    s += tot_s[h][cx];
+    q *= tot_p[h][cx];
+  }
+  if (col) {
+    for (int r = r0; r < r1; ++r) {
+      const size_t at = (size_t)r * p + c;
+      sum[at] = s;
+      prod[at] = q;
+      s += x[at];
+      q *= m[at];
+    }
   }
 }
 
@@ -102,8 +83,8 @@ extern "C" int scan_probe(const void* x, const void* m, void* sum, void* prod,
                           int n, int p, void* stream) {
   if (n > MAX_ROWS) return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0 && p > 0) {
-    const int threads = (n + 31) / 32 * 32;
-    scan_probe_kernel<<<p, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+    scan_probe_kernel<<<(p + COLS - 1) / COLS, dim3(COLS, SEGS), 0,
+                        static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(x), static_cast<const float*>(m),
         static_cast<float*>(sum), static_cast<float*>(prod), n, p);
   }

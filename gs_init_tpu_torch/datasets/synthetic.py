@@ -84,22 +84,28 @@ def render_views(
     device=None, tile_size: int = 16,
 ):
     """Render each view with the tile compositor; returns numpy
-    (images [C,H,W,3] clipped to [0, 1], alphas [C,H,W], depths [C,H,W])."""
+    (images [C,H,W,3] clipped to [0, 1], alphas [C,H,W], depths [C,H,W],
+    the expected depth). The pair table carries over from view to view and
+    a view that overflows it is rendered again with a table of at least
+    its demand, so a scene of millions of gaussians re-renders a few views,
+    not every one."""
     dev = resolve_device(device)
     t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
     g = [t(x) for x in (means, quats, scales, opacities, rgbs)]
     images, alphas, depths = [], [], []
+    cap = 1 << 16
     for c2w, K in zip(camtoworlds, Ks):
         viewmat = torch.linalg.inv(t(c2w))[None]
-        cap = 1 << 16
         while True:
             render, alpha, info = rasterize(
                 *g, viewmat, t(K)[None], width, height, render_mode="RGB+ED",
                 tile_size=tile_size, pair_capacity=cap,
             )
-            if int(info.overflow) == 0:
+            overflow = int(info.overflow)
+            if overflow == 0:
                 break
-            cap *= 4
+            demand = int(info.binning.tile_starts[-1]) + overflow
+            cap = max(4 * cap, 1 << (demand - 1).bit_length())
         images.append(render[0, ..., :3].clamp(0.0, 1.0).cpu().numpy())
         alphas.append(alpha[0, ..., 0].cpu().numpy())
         depths.append(render[0, ..., 3].cpu().numpy())

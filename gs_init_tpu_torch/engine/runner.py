@@ -405,11 +405,12 @@ class Runner:
             batch.depth_values = self._to_device(dv)
         return batch
 
-    def _maybe_retune_capacity(self, metrics, step: int) -> None:
+    def _maybe_retune_capacity(self, metrics, step: int, overflowed: bool = False) -> None:
         """Right-size pair_capacity from the peak pair count seen since the
-        last decision (host sync): grow when pairs overflowed it, shrink
-        when it is over 1.33x the snug size. The eager step reads
-        cfg.pair_capacity on every call, so either costs no rebuild."""
+        last decision (host sync): grow when pairs overflowed it (this
+        step's, or an earlier one's when ``overflowed``), shrink when it is
+        over 1.33x the snug size. The eager step reads cfg.pair_capacity on
+        every call, so either costs no rebuild."""
         cfg = self.cfg
         if not cfg.auto_pair_capacity or cfg.rasterizer_impl == "xla":
             return
@@ -421,7 +422,7 @@ class Runner:
         peak = max(self._pairs_max, pairs + overflow)
         self._pairs_max = 0
         cap = cfg.pair_capacity
-        new_cap = retuned_pair_capacity(peak, overflow, cap)
+        new_cap = retuned_pair_capacity(peak, max(overflow, int(overflowed)), cap)
         if new_cap == cap:
             return
         self.log(
@@ -538,9 +539,15 @@ class Runner:
             torch.cuda.reset_peak_memory_stats(self.device)
         t0 = time.time()
         last = {}
+        # The largest demand (pairs + overflow) of a step that overflowed
+        # since the last logged step, kept on the card: growth between
+        # refines overflows some views at steps no sync reads.
+        missed = torch.zeros((), dtype=torch.int64, device=self.device)
         for step in range(cfg.max_steps):
             self.train_step = step
             metrics = self.train_iteration(step)
+            over = torch.as_tensor(metrics["overflow"], device=self.device)
+            missed = torch.maximum(missed, torch.where(over > 0, over + metrics["pairs"], 0))
             # Growth after a refine or relocation shows as overflow on the
             # step after it: one host sync per refine cycle catches it.
             if (
@@ -551,9 +558,11 @@ class Runner:
                 self._maybe_retune_capacity(metrics, step)
             if step % cfg.tb_every == 0:
                 last = {k: float(v) for k, v in metrics.items()}
-                self._pairs_max = max(self._pairs_max, int(last["pairs"]) + int(last["overflow"]))
-                if last["overflow"] > 0:
-                    self._maybe_retune_capacity(metrics, step)
+                demand = int(missed)
+                missed.zero_()
+                self._pairs_max = max(self._pairs_max, int(last["pairs"]) + int(last["overflow"]), demand)
+                if demand > 0:
+                    self._maybe_retune_capacity(metrics, step, overflowed=True)
                 n_gs = self.num_gaussians()
                 self.refresh_view()
                 mem_stats = device_memory_stats(self.device)

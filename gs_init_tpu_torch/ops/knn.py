@@ -5,12 +5,27 @@ Squared distances as |x|^2 + |y|^2 - 2 x.y in full f32 (``torch.matmul``
 in f32 does not use TF32 unless enabled globally). ``knn`` blocks over both
 queries and points with a running top-k, so its peak memory is
 [chunk, point_chunk] whatever the cloud's size (a [chunk, N] block is
-24 GB at N = 3M). ``mean_knn_dist`` (the reference's kNN scale
-initialisation) takes [chunk, N] blocks with one top-k each.
+24 GB at N = 3M).
+
+``knn_sq_dists`` (behind ``mean_knn_dist``, the reference's kNN scale
+initialisation) finds the same k smallest values as the brute force, from
+the same per-pair arithmetic, without visiting every pair: the points are
+put in Morton order and cut into blocks of ``chunk``; each query block
+first takes a bound from its ``BOUND_BLOCKS`` nearest blocks by bounding
+box, then visits only the other blocks whose box lies within that bound:
+on a surface-like cloud a few dozen blocks per block, not all of them.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from ..utils.compression import morton_order
+
+# Blocks a query block scans first, its own included, for its bound.
+BOUND_BLOCKS = 3
+# Distances to several blocks are taken this many at a time (256 MB in f32).
+MAX_BLOCK_ELEMS = 1 << 26
 
 
 def knn(
@@ -45,14 +60,52 @@ def knn(
 
 
 def knn_sq_dists(points: torch.Tensor, k: int, chunk: int = 2048) -> torch.Tensor:
-    """Squared distances [N, k] to the k nearest points (self included)."""
-    p_sq = (points * points).sum(-1)
-    out = []
-    for s in range(0, points.shape[0], chunk):
-        q = points[s : s + chunk]
-        d2 = (q * q).sum(-1, keepdim=True) - 2.0 * q @ points.T + p_sq[None, :]
-        out.append(torch.topk(d2, k, dim=1, largest=False).values.clamp(min=0.0))
-    return torch.cat(out, 0)
+    """Squared distances [N, k] to the k nearest points [N, 3] (self
+    included), nearest first, clamped at 0: the values ``knn(points,
+    points, k)`` squares, visiting only blocks that can hold a neighbour."""
+    n = points.shape[0]
+    dev = points.device
+    order = torch.as_tensor(morton_order(points.detach().cpu().numpy()).astype(np.int64), device=dev)
+    p = points[order]
+    p_sq = (p * p).sum(-1)
+    nb = -(-n // chunk)
+    # Each block's bounding box (the last block padded with its last point).
+    padded = torch.cat([p, p[-1:].expand(nb * chunk - n, p.shape[1])]).reshape(nb, chunk, -1)
+    lo, hi = padded.amin(1), padded.amax(1)
+    gap = (lo[None] - hi[:, None]).clamp(min=0) + (lo[:, None] - hi[None]).clamp(min=0)
+    box_d2 = (gap * gap).sum(-1)  # [nb, nb]: no pair of the two blocks is nearer
+    # The computed d2 of a pair may fall below its true value by rounding
+    # (a few ulp of |x|^2 + |y|^2): a block is visited within this margin.
+    margin = 1e-5 * 2.0 * float(p_sq.max())
+    per_group = max(1, MAX_BLOCK_ELEMS // (chunk * chunk))
+    rows = lambda j: slice(j * chunk, min(n, (j + 1) * chunk))
+
+    def scan(qi, blocks, best):
+        q = p[rows(qi)]
+        q_sq = p_sq[rows(qi)][:, None]
+        for g in range(0, len(blocks), per_group):
+            grp = blocks[g : g + per_group]
+            pb = torch.cat([p[rows(j)] for j in grp])
+            pb_sq = torch.cat([p_sq[rows(j)] for j in grp])
+            d2 = q_sq - 2.0 * q @ pb.T + pb_sq[None, :]
+            best = torch.topk(torch.cat([best, d2], dim=1), k, dim=1, largest=False).values
+        return best
+
+    first = torch.topk(box_d2, min(BOUND_BLOCKS, nb), dim=1, largest=False).indices.tolist()
+    best = []
+    for qi in range(nb):
+        inf = torch.full((rows(qi).stop - rows(qi).start, k), float("inf"), device=dev)
+        best.append(scan(qi, first[qi], inf))
+    bound = torch.stack([b[:, -1].max() for b in best])  # each block's worst k-th distance
+    visit = (box_d2 <= bound[:, None] + margin).cpu()
+    for qi in range(nb):
+        visit[qi, first[qi]] = False
+        rest = torch.nonzero(visit[qi]).flatten().tolist()
+        if rest:
+            best[qi] = scan(qi, rest, best[qi])
+    out = torch.empty((n, k), dtype=points.dtype, device=dev)
+    out[order] = torch.cat(best).clamp(min=0.0)
+    return out
 
 
 def mean_knn_dist(points: torch.Tensor, k: int = 3, chunk: int = 2048) -> torch.Tensor:

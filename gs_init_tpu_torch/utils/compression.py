@@ -13,7 +13,9 @@ from typing import Tuple
 import numpy as np
 
 
-def _morton_order(pts: np.ndarray, bits: int = 10) -> np.ndarray:
+def morton_order(pts: np.ndarray, bits: int = 10) -> np.ndarray:
+    """The permutation that puts 3-D points in Z order, each axis quantised
+    to 2^bits over its range."""
     lo, hi = pts.min(axis=0), pts.max(axis=0)
     q = ((pts - lo) / np.maximum(hi - lo, 1e-12) * (2**bits - 1)).astype(
         np.uint64
@@ -55,7 +57,7 @@ def compress_splats(
     sh0: np.ndarray,  # [N, 1, 3]
     shN: np.ndarray,  # [N, K-1, 3]
 ) -> str:
-    order = _morton_order(np.asarray(means, np.float32))
+    order = morton_order(np.asarray(means, np.float32))
     means = np.asarray(means, np.float32)[order]
     quats = np.asarray(quats, np.float32)[order]
     quats /= np.maximum(np.linalg.norm(quats, axis=1, keepdims=True), 1e-12)

@@ -54,6 +54,29 @@ def test_knn(rng, m, n_pts, k, chunk, point_chunk):
     np.testing.assert_allclose(n(pd), n(jd), atol=1e-5)
 
 
+@pytest.mark.parametrize("chunk", [128, 4096])
+def test_mean_knn_dist_visits_only_neighbouring_blocks(rng, chunk):
+    """The kNN scale init over a cloud of many blocks (a dense ball, a wall
+    and a ground plane of a clustered scene, and one far outlier) equals
+    the blocked brute force ``knn`` over every pair, and the JAX package's
+    ``mean_knn_dist``."""
+    ball = rng.normal(0, 0.35, (1200, 3))
+    ang = rng.uniform(0, 2 * np.pi, 1000)
+    wall = np.stack([6 * np.cos(ang), rng.uniform(-2.2, 2.2, 1000), 6 * np.sin(ang)], -1)
+    ground = np.stack([rng.uniform(-6, 6, 800), np.full(800, 2.3), rng.uniform(-6, 6, 800)], -1)
+    p = np.concatenate([ball, wall, ground, [[30.0, -20.0, 10.0]]]).astype(np.float32)
+    got = n(pknn.mean_knn_dist(t(p), k=3, chunk=chunk))
+    d, _ = pknn.knn(t(p), t(p), k=4, chunk=128, point_chunk=512)
+    np.testing.assert_allclose(got, n(torch.sqrt((d[:, 1:] ** 2).mean(-1))), rtol=1e-6)
+    # Against JAX: |x|^2 + |y|^2 - 2 x.y in two BLAS orders rounds apart by
+    # a few ulp of |x|^2 (1.8 measured), far above 1e-5 of a neighbour's
+    # distance on the wall.
+    want = np.asarray(jknn.mean_knn_dist(jnp.asarray(p), k=3)).astype(np.float64)
+    ulp = np.finfo(np.float32).eps * ((p.astype(np.float64) ** 2).sum(-1) + want**2)
+    assert (np.abs(got.astype(np.float64) ** 2 - want**2) <= 8 * ulp).all()
+    assert got[-1] > 10 * np.median(got)  # the outlier's neighbours lie in far blocks
+
+
 def test_lof_scores(rng):
     cluster = rng.normal(0, 0.1, (120, 3)).astype(np.float32)
     outliers = rng.uniform(3, 5, (6, 3)).astype(np.float32)

@@ -5,7 +5,8 @@ export, compression and the eval-only restart; checkpoints written by
 either package's Runner and loaded by the other's, every array equal to 0
 ulp; PLY and compressed splats read by the other package's reader; the
 trajectories, patch crops and prefetch order against the JAX package's;
-and pair-capacity shrinking.
+and pair-capacity shrinking, and regrowth after an overflow that no sync
+point saw.
 """
 import json
 import os
@@ -205,6 +206,42 @@ def test_pair_capacity_shrinks(scene_dir, tmp_path):
     assert cfg.pair_capacity <= 1 << 15
     m = runner.train_iteration(1)
     assert np.isfinite(float(m["loss"])) and int(m["overflow"]) == 0
+
+
+def test_overflow_between_logged_steps_regrows_the_table(scene_dir, tmp_path):
+    """A step that overflows the pair table where no sync reads it (not a
+    logged step, not the step after a refine) still regrows the table at
+    the next logged step: its demand waits on the card."""
+    def cfg(cap, steps):
+        return Config(data_dir=scene_dir, data_factor=1, result_dir=str(tmp_path), test_every=4, max_steps=steps,
+                      eval_steps=[], save_steps=[], tb_every=10, max_gaussians=128, pair_capacity=cap,
+                      tile_size=16, sh_degree=1, data_prefetch=0, mesh="off", chunk_size=8)
+
+    probe = Runner(cfg(1 << 16, 1), device="cpu")
+    demand = []
+    for i in range(len(probe.trainset)):
+        probe._next_batch = lambda i=i: probe._build_batch([i])
+        demand.append(int(probe.train_iteration(1)["pairs"]))
+    lo, hi = int(np.argmin(demand)), int(np.argmax(demand))
+    assert demand[lo] < demand[hi]
+    cap = (demand[hi] - 1) // 8 * 8  # a multiple of the chunk that only view `hi` overflows
+    assert demand[lo] <= cap, demand
+    c = cfg(cap, 11)
+    runner = Runner(c, device="cpu")
+    order = iter([lo] * 3 + [hi] + [lo] * 7)
+    runner._next_batch = lambda: runner._build_batch([next(order)])
+    overflow = []
+    real = runner.train_iteration
+    runner.train_iteration = lambda step: _record(real, step, overflow)
+    runner.train()
+    assert [i for i, o in enumerate(overflow) if o > 0] == [3]
+    assert c.pair_capacity >= demand[hi]  # regrown at step 10
+
+
+def _record(real, step, overflow):
+    m = real(step)
+    overflow.append(int(m["overflow"]))
+    return m
 
 
 @pytest.mark.parametrize("cap", [1 << 14, 1 << 18, 1638400])
