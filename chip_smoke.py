@@ -154,13 +154,34 @@ no result line.
    depth at the SfM observations' pixels must come out within the median's
    limit); the kNN scale init against two plain searches over the init
    cloud, timed, within KNN_ULP; and the growth run, the same scene from
-   its SfM points alone (init_type sfm), whose alive count must more than
-   double across the refines and whose pair table must grow after one.
+   a stride-40 mdi init (GROWTH_OVERRIDES), whose alive count must more
+   than double across the refines and whose pair table must grow after one.
+11. Both presets at their default capacity at garden scale (DEFAULTS):
+   the scene of phase 10 with all 185 cameras (161 train, 24 test), whose
+   mdi init cloud (~1.68M points) exceeds the presets' max_gaussians of
+   1,000,000. Per preset, parse_cli with no capacity, cap_max, pair-table
+   or refine override, Runner(cfg, parser, mdi_model=stub), an eval of the
+   initial gaussians, train() for 1,200 steps with the preset's refines
+   (default) or relocations and noise (mcmc), and its eval. Held: the
+   Runner's subset line, alive == 1,000,000 after init with no repeated
+   mean, finite kNN scales, a finite loss at every step, the refines or
+   relocations at the preset's steps, alive within the capacity (default)
+   or min(cap_max, capacity) (mcmc) after each, no refine granting more
+   slots than were free, eval PSNR at least PSNR_GAIN_DB over the initial
+   gaussians', the card's per-image PSNR and SSIM against the CPU
+   (EVAL_PSNR_ATOL, EVAL_SSIM_ATOL), one K1 and one K2 launch per step plus
+   K1 per eval render, the scan probe once. Printed: init seconds per
+   image and points, the subset's and the kNN's seconds, steps/s per 100
+   steps, each refine (candidates, free slots, granted, dropped, median
+   scale) or relocation (dead moved, added), noise ms per step (CUDA
+   events), retunes and overflowed steps, eval ms per image (render,
+   metrics, LPIPS), peak memory, launches.
 
 The line before the last lists the kernels as JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -3267,13 +3288,7 @@ def garden_path(dev, card, n_cams, width, height, n_fg, n_bg, n_sfm, steps, capa
             # Eval: render, the metrics and LPIPS timed; renders and the
             # overflow re-renders counted.
             ev = dict(render=[], metrics=[], lpips=[], calls=0)
-            real_render, real_rast = runner.render, prunner.rasterize
-
-            def timed_render(*a, **kw):
-                ta = now()
-                out = real_render(*a, **kw)  # numpy out: synchronised
-                ev["render"].append(now() - ta)
-                return out
+            real_rast = prunner.rasterize
 
             def counted_rast(*a, **kw):
                 ev["calls"] += 1
@@ -3289,7 +3304,7 @@ def garden_path(dev, card, n_cams, width, height, n_fg, n_bg, n_sfm, steps, capa
                     return out
                 return f
 
-            runner.render = timed_render
+            runner._render_on_device = timer(runner._render_on_device, "render")
             patch(prunner, "rasterize", counted_rast)
             patch(prunner, "psnr", timer(prunner.psnr, "metrics"))
             patch(prunner, "ssim", timer(prunner.ssim, "metrics"))
@@ -3476,6 +3491,371 @@ def garden_path(dev, card, n_cams, width, height, n_fg, n_bg, n_sfm, steps, capa
                 os.environ["GS_TPU_CHECKPOINT_DIR"] = env_before
 
 
+# ----------------------------------------------------------------- phase 11
+# Both presets at their own defaults on garden's 185 cameras (test_every 8:
+# 161 train, 24 test). The mdi init over the 161 training images gives
+# ~1.68M points (1,675,479 on an NVIDIA H100 80GB HBM3, 700 W), above the
+# presets' max_gaussians of 1,000,000, so each run starts from the uniform
+# random subset with a full buffer: the default preset's refines find no
+# free slot until pruning frees some; the mcmc preset (cap_max = capacity) grows by nothing and relocates
+# onto the full buffer. The argv names no capacity, cap_max, pair table or
+# refine schedule. Widths are garden's; the depth is cut to 1,200 steps
+# (refines or relocations at 600-1,100).
+DEFAULTS = dict(n_cams=185, width=1296, height=840, n_fg=150_000, n_bg=850_000, n_sfm=100_000, steps=1200)
+# The least rise of eval PSNR over the initial gaussians' in each run (dB).
+PSNR_GAIN_DB = 3.0
+# The card's eval metrics against the same formulas on CPU copies of the
+# same render and ground truth: float32 sums in another order.
+EVAL_PSNR_ATOL = 1e-4
+EVAL_SSIM_ATOL = 1e-5
+
+
+class Tee:
+    """A stdout that also keeps what it was given."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def preset_run(preset, data_dir, parser, stub, res, steps, card, dev):
+    """One run of phase 11: parse_cli(preset) -> Runner(cfg, parser,
+    mdi_model=stub) -> eval of the initial gaussians -> train(). Timers and
+    counters wrap the package's functions for this run only. Returns the
+    failures."""
+    import torch
+    from gs_init_tpu_torch import kernels, trainer
+    from gs_init_tpu_torch.config import parse_cli
+    from gs_init_tpu_torch.engine import params as pparams
+    from gs_init_tpu_torch.engine import runner as prunner
+    from gs_init_tpu_torch.engine.strategy import default as dstrat
+    from gs_init_tpu_torch.engine.strategy import mcmc as mstrat
+
+    now = time.perf_counter
+    sync = lambda: torch.cuda.synchronize(dev)
+    say = lambda s: log(f"  [{card}] {preset}: {s}")
+    patches = []
+
+    def patch(obj, name, fn):
+        patches.append((obj, name, getattr(obj, name)))
+        setattr(obj, name, fn)
+
+    def timer(fn, out):
+        def f(*a, **kw):
+            sync()
+            ta = now()
+            r = fn(*a, **kw)
+            sync()
+            out.append(now() - ta)
+            return r
+        return f
+
+    argv = [preset, f"--data_dir={data_dir}", "--data_factor=1", f"--result_dir={res}",
+            "--init_type=monocular_depth", "--mdi.predictor=stub", "--mdi.use_cache=false",
+            f"--max_steps={steps}", f"--eval_steps=[{steps}]"]
+    cfg = parse_cli(argv, trainer.build_presets())
+    cfg.adjust_steps()
+    s = cfg.strategy
+    cap = cfg.max_gaussians
+    limit = min(s.cap_max, cap) if preset == "mcmc" else cap
+    failures = []
+    try:
+        # The init: the mdi cloud, the subset and the kNN over it, timed.
+        init, knns, inits = {}, [], []
+        real_mdi, real_knn, real_init = (prunner.pts_and_rgb_from_monocular_depth, pparams.mean_knn_dist,
+                                         prunner.init_from_points)
+
+        def timed_mdi(*a, **kw):
+            per = []
+            ta = now()
+            out = real_mdi(*a, per_image=per, **kw)
+            sync()
+            init.update(seconds=now() - ta, per_image=per, points=out[0])
+            return out
+
+        patch(prunner, "pts_and_rgb_from_monocular_depth", timed_mdi)
+        patch(pparams, "mean_knn_dist", timer(real_knn, knns))
+        patch(prunner, "init_from_points", timer(real_init, inits))
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev) / 2**30
+        tee = Tee(sys.stdout)
+        t0 = now()
+        with contextlib.redirect_stdout(tee):
+            runner = prunner.Runner(cfg, parser=parser, mdi_model=stub, device=dev)
+        sync()
+        t_setup = now() - t0
+        init_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        g = runner.gstate
+        n0 = int(g.alive.sum())
+        means = g.params.means[g.alive]
+        n_distinct = len(torch.unique(means, dim=0))
+        cloud = torch.as_tensor(init["points"], device=dev)
+        cloud_distinct = len(torch.unique(cloud, dim=0))
+        finite = bool(torch.isfinite(g.params.scales[g.alive]).all())
+        med0 = float(torch.exp(g.params.scales[g.alive]).amax(-1).median())
+        del means, cloud
+        subset_line = f"init points {len(init['points'])} exceed capacity {cap}; keeping a uniform random subset"
+        printed = subset_line in "".join(tee.text)
+        per = init["per_image"]
+        say(f"capacity {cap}, cap_max {s.cap_max if preset == 'mcmc' else '-'} (the preset's own); init: "
+            f"{len(per)} images in {init['seconds']:.3f} s ({init['seconds'] / len(per):.4f} s per image), "
+            f"{len(init['points'])} points out ({cloud_distinct} distinct); subset line printed: {printed}; "
+            f"init_from_points {inits[0]:.3f} s: the subset {inits[0] - knns[0]:.3f} s, the kNN over the "
+            f"{n0} kept {knns[0]:.3f} s; alive {n0}, {n_distinct} distinct means, kNN scales finite: {finite}, "
+            f"median scale {med0:.5f}; Runner set-up {t_setup:.3f} s, peak {init_peak:.3f} GiB ({held:.3f} GiB held "
+            "before it)")
+        if not printed:
+            failures.append(f"{preset}: the Runner did not print the subset line")
+        if n0 != cap or cap != 1_000_000:
+            failures.append(f"{preset}: alive {n0} after init at capacity {cap}, not 1,000,000")
+        if n_distinct != n0:
+            failures.append(f"{preset}: {n0 - n_distinct} repeated means in the subset (the cloud has "
+                            f"{len(init['points']) - cloud_distinct} repeated points)")
+        if not finite:
+            failures.append(f"{preset}: non-finite kNN scales")
+
+        # Eval: render, metrics and LPIPS timed; rasterize calls counted;
+        # at the final eval each image's PSNR and SSIM also on CPU copies.
+        ev = dict(render=[], metrics=[], lpips=[], calls=0, err_psnr=[], err_ssim=[], check=False)
+        real_psnr, real_ssim, real_rast = prunner.psnr, prunner.ssim, prunner.rasterize
+
+        def counted_rast(*a, **kw):
+            ev["calls"] += 1
+            return real_rast(*a, **kw)
+
+        def held(fn, key):
+            timed = timer(fn, ev["metrics"])
+
+            def f(a, b):
+                out = timed(a, b)
+                if ev["check"]:
+                    ev[key].append(abs(float(out) - float(fn(a.cpu(), b.cpu()))))
+                return out
+            return f
+
+        runner._render_on_device = timer(runner._render_on_device, ev["render"])
+        patch(prunner, "rasterize", counted_rast)
+        patch(prunner, "psnr", held(real_psnr, "err_psnr"))
+        patch(prunner, "ssim", held(real_ssim, "err_ssim"))
+        patch(prunner, "lpips", timer(prunner.lpips, ev["lpips"]))
+        psnr0 = runner.eval(0)["psnr"]
+        n_val = len(runner.valset)
+        ev0 = {k: float(np.sum(ev[k])) * 1e3 / n_val for k in ("render", "metrics", "lpips")}
+        for k in ("render", "metrics", "lpips"):
+            ev[k].clear()
+        ev["calls"], ev["check"] = 0, True
+
+        # Training: each step's loss and overflow kept on the card, every
+        # 100 steps marked; each refine or relocation timed, with what it
+        # granted or moved; the noise timed by CUDA events (no sync).
+        rec = dict(loss=[], overflow=[], mark={}, refine=[], retune=[], noise=[])
+        real_iter, real_retune, real_eval = runner.train_iteration, runner._maybe_retune_capacity, runner.eval
+
+        def hooked(step):
+            if step % 100 == 0:
+                sync()
+                rec["mark"][step] = now()
+            m = real_iter(step)
+            rec["loss"].append(m["loss"].detach())
+            rec["overflow"].append(m["overflow"])
+            if step == steps - 1:
+                sync()
+                rec["mark"][steps] = now()
+            return m
+
+        def counted_retune(metrics, step, **kw):
+            before = cfg.pair_capacity
+            real_retune(metrics, step, **kw)
+            if cfg.pair_capacity != before:
+                rec["retune"].append((step, before, cfg.pair_capacity))
+
+        def eval_peak(step, *a, **kw):
+            sync()
+            rec["train_peak"] = torch.cuda.max_memory_allocated(dev) / 2**30
+            torch.cuda.reset_peak_memory_stats(dev)
+            out = real_eval(step, *a, **kw)
+            rec["eval_peak"] = torch.cuda.max_memory_allocated(dev) / 2**30
+            return out
+
+        def median_scale(gs):
+            return float(torch.exp(gs.params.scales[gs.alive]).amax(-1).median())
+
+        if preset == "default":
+            real_refine, real_alloc = dstrat.refine, dstrat._alloc_slots
+            grants = []
+
+            def spy_alloc(alive, cand):
+                dst, ok = real_alloc(alive, cand)
+                grants.append((int(cand.sum()), int((~alive).sum()), int(ok.sum())))
+                return dst, ok
+
+            def timed_refine(*a, **kw):
+                sync()
+                ta = now()
+                out = real_refine(*a, **kw)
+                sync()
+                ms = (now() - ta) * 1e3
+                cand, free, granted = grants[-1]
+                rec["refine"].append(dict(step=a[-1], ms=ms, alive=int(out[0].alive.sum()), cand=cand, free=free,
+                                          granted=granted, median=median_scale(out[0]), **out[3]))
+                return out
+
+            patch(dstrat, "_alloc_slots", spy_alloc)
+            patch(dstrat, "refine", timed_refine)
+        else:
+            real_relocate, real_noise = mstrat.relocate, mstrat.add_noise
+
+            def timed_relocate(gs, adam, st, gen, scfg):
+                n_dead = int(mstrat.live_mask(gs, scfg)[1].sum())
+                n_before = int(gs.alive.sum())
+                sync()
+                ta = now()
+                out = real_relocate(gs, adam, st, gen, scfg)
+                sync()
+                ms = (now() - ta) * 1e3
+                rec["refine"].append(dict(step=runner.train_step, ms=ms, alive=int(out[0].alive.sum()), dead=n_dead,
+                                          added=int(out[0].alive.sum()) - n_before, median=median_scale(out[0])))
+                return out
+
+            def timed_noise(*a, **kw):
+                ea, eb = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                ea.record()
+                out = real_noise(*a, **kw)
+                eb.record()
+                rec["noise"].append((ea, eb))
+                return out
+
+            patch(mstrat, "relocate", timed_relocate)
+            patch(mstrat, "add_noise", timed_noise)
+        runner.train_iteration, runner._maybe_retune_capacity, runner.eval = hooked, counted_retune, eval_peak
+        kernels.reset_launch_counts()
+        t0 = now()
+        stats = runner.train()
+        sync()
+        t_train = now() - t0
+        launches = dict(stats["kernel_launches"])
+        losses = torch.stack(rec["loss"]).float().cpu().numpy()
+        overflowed = int((torch.stack(rec["overflow"]) > 0).sum())
+        g = runner.gstate
+        bad = torch.zeros_like(g.alive)
+        for _, v in g.params.items():
+            bad |= ~torch.isfinite(v.reshape(v.shape[0], -1)).all(-1)
+        n_bad = int((bad & g.alive).sum())
+        with open(os.path.join(res, "stats", f"val_step{steps}.json")) as f:
+            val = json.load(f)
+        marks = sorted(rec["mark"])
+        seg = [(a, b, (b - a) / (rec["mark"][b] - rec["mark"][a])) for a, b in zip(marks, marks[1:])]
+        say(f"train: {steps} steps in {t_train:.3f} s (final eval and checkpoint inside); loss {losses[0]:.5f} -> "
+            f"{losses[-1]:.5f}, finite at every step: {bool(np.isfinite(losses).all())}; alive gaussians with a "
+            f"non-finite parameter at the end: {n_bad}; peak {rec['train_peak']:.3f} "
+            f"GiB before the final eval, {rec['eval_peak']:.3f} GiB in it")
+        say("steps/s by 100-step segment (refines or relocations inside): "
+            + ", ".join(f"[{a}, {b}) {r:.3f}" for a, b, r in seg))
+        if preset == "default":
+            say("refines (step: ms; candidates, free slots, granted, dropped; duplicated / split / pruned; alive "
+                "after; median scale after): " + "; ".join(
+                    f"{r['step']}: {r['ms']:.3f}; {r['cand']}, {r['free']}, {r['granted']}, "
+                    f"{r['cand'] - r['granted']}; {r['n_dup']}/{r['n_split']}/{r['n_pruned']}; {r['alive']}; "
+                    f"{r['median']:.5f}" for r in rec["refine"]))
+            if any(r["granted"] > r["free"] for r in rec["refine"]):
+                failures.append(f"{preset}: a refine granted more slots than were free")
+        else:
+            noise_ms = [a.elapsed_time(b) for a, b in rec["noise"]]
+            say(f"relocations (step: ms; dead relocated, added; alive after; median scale after): " + "; ".join(
+                f"{r['step']}: {r['ms']:.3f}; {r['dead']}, {r['added']}; {r['alive']}; {r['median']:.5f}"
+                for r in rec["refine"]) + f"; noise {np.mean(noise_ms):.4f} ms per step (median "
+                f"{np.median(noise_ms):.4f}, {len(noise_ms)} steps, CUDA events)")
+        say(f"pair capacity: {len(rec['retune'])} retunes {rec['retune']}, {cfg.pair_capacity} at the end; "
+            f"{overflowed} steps overflowed their table")
+        rr = ev["calls"] - n_val
+        say(f"eval ({n_val} images): PSNR {psnr0:.4f} (initial gaussians) -> {val['psnr']:.4f}, SSIM "
+            f"{val['ssim']:.4f}, LPIPS {val.get('lpips', float('nan')):.4f} (random weights), {val['num_GS']} "
+            f"gaussians; ms per image: render {1e3 * np.mean(ev['render']):.3f}, PSNR and SSIM "
+            f"{1e3 * np.sum(ev['metrics']) / n_val:.3f}, LPIPS {1e3 * np.sum(ev['lpips']) / n_val:.3f} (at step 0: "
+            f"{ev0['render']:.3f}, {ev0['metrics']:.3f}, {ev0['lpips']:.3f}); {rr} overflow re-renders; card "
+            f"against CPU, max |diff| per image: PSNR {max(ev['err_psnr']):.2e} dB, SSIM {max(ev['err_ssim']):.2e}")
+        want = dict(composite_fwd=steps + ev["calls"], composite_bwd=steps, scan_probe=1)
+        say(f"launches in train() {json.dumps(launches)} (want {json.dumps(want)})")
+        alive = [r["alive"] for r in rec["refine"]]
+        if len(losses) != steps or not np.isfinite(losses).all():
+            failures.append(f"{preset}: a non-finite loss")
+        if n_bad:
+            failures.append(f"{preset}: {n_bad} alive gaussians with a non-finite parameter")
+        expected = [k for k in range(steps) if s.refine_start_iter < k < s.refine_stop_iter and k % s.refine_every == 0]
+        if [r["step"] for r in rec["refine"]] != expected:
+            failures.append(f"{preset}: refines or relocations at {[r['step'] for r in rec['refine']]}, not {expected}")
+        if not alive or max(alive) > limit or stats["num_GS"] > limit:
+            failures.append(f"{preset}: alive {alive} (end {stats['num_GS']}) beyond {limit}")
+        if not val["psnr"] - psnr0 >= PSNR_GAIN_DB:
+            failures.append(f"{preset}: eval PSNR {val['psnr']:.4f} rose less than {PSNR_GAIN_DB} dB over the "
+                            f"initial {psnr0:.4f}")
+        if len(ev["err_psnr"]) != n_val or max(ev["err_psnr"]) > EVAL_PSNR_ATOL or max(ev["err_ssim"]) > EVAL_SSIM_ATOL:
+            failures.append(f"{preset}: eval metrics on the card disagree with the CPU")
+        if any(launches[k] != v for k, v in want.items()):
+            failures.append(f"{preset}: launches {launches}, not {want}")
+        return failures
+    finally:
+        for obj, name, fn in reversed(patches):
+            setattr(obj, name, fn)
+
+
+def default_capacity(dev, card, n_cams, width, height, n_fg, n_bg, n_sfm, steps):
+    """Phase 11: both presets at their default capacity on the 185-camera
+    garden scene, through parse_cli and Runner(cfg, parser,
+    mdi_model=stub).train() (trainer.main takes no predictor object), with
+    random LPIPS weights so that eval times LPIPS too."""
+    import torch
+    from gs_init_tpu_torch.datasets.parser import Parser
+    from gs_init_tpu_torch.datasets.synthetic import write_colmap_scene
+
+    def release():
+        # The timers that wrap a Runner's methods make reference cycles
+        # through it: collect them, or an earlier Runner's buffers stay on
+        # the card and in the next run's peak.
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    now = time.perf_counter
+    t_phase = now()
+    env_before = os.environ.get("GS_TPU_CHECKPOINT_DIR")
+    failures = []
+    release()
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            t0 = now()
+            scene, _ = garden_scene(dev, n_cams, width, height, n_fg, n_bg)
+            t1 = now()
+            data_dir = write_colmap_scene(
+                tmp, scene._replace(surface_depths=sfm_visible_depth(scene, n_sfm)), n_points=n_sfm)
+            log(f"  [{card}] scene: {n_cams} cameras at {width}x{height}, {len(scene.points)} gaussians, {n_sfm} "
+                f"SfM points; rendered in {t1 - t0:.3f} s, written in {now() - t1:.3f} s")
+            ckpt_dir = os.path.join(tmp, "lpips")
+            os.makedirs(ckpt_dir)
+            write_lpips_weights(ckpt_dir)
+            os.environ["GS_TPU_CHECKPOINT_DIR"] = ckpt_dir
+            parser = Parser(data_dir, factor=1, test_every=GARDEN_TEST_EVERY)
+            stubs = {p: TimedPredictor(surface_depth_stub(scene, parser)) for p in ("default", "mcmc")}
+            del scene
+            for preset in ("default", "mcmc"):
+                failures += preset_run(preset, data_dir, parser, stubs[preset], os.path.join(tmp, preset), steps,
+                                       card, dev)
+                release()
+        finally:
+            if env_before is None:
+                os.environ.pop("GS_TPU_CHECKPOINT_DIR", None)
+            else:
+                os.environ["GS_TPU_CHECKPOINT_DIR"] = env_before
+    log(f"  [{card}] phase 11 took {now() - t_phase:.1f} s")
+    if failures:
+        raise RuntimeError("phase 11: " + "; ".join(failures))
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -3574,6 +3954,10 @@ def main():
 
     log(f"phase 10: the whole path at garden scale ({time.perf_counter() - t_start:.1f} s)")
     garden_path(dev, card, **GARDEN)
+    torch.cuda.empty_cache()
+
+    log(f"phase 11: both presets at their default capacity at garden scale ({time.perf_counter() - t_start:.1f} s)")
+    default_capacity(dev, card, **DEFAULTS)
 
     log(f"total {time.perf_counter() - t_start:.3f} s")
     log(card)

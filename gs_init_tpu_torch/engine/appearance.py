@@ -217,9 +217,13 @@ def total_variation_loss(grids: torch.Tensor) -> torch.Tensor:
     return tv
 
 
-def color_correct(img: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+def color_correct(
+    img: torch.Tensor, ref: torch.Tensor, num_iters: int = 5, eps: float = 0.5 / 255
+) -> torch.Tensor:
     """Per-channel quadratic-expansion least-squares colour warp of ``img``
-    toward ``ref`` (eval's cc_psnr).
+    toward ``ref`` (eval's cc_psnr). The fit is one direct solve, as the
+    JAX package's is: ``num_iters`` and ``eps`` keep its signature and, as
+    there, change nothing.
 
     ``jnp.linalg.lstsq(rcond=None)`` returns the minimum-norm solution and
     drops singular values below eps(f32) * max(M, N) of the largest; a flat

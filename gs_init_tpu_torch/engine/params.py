@@ -67,6 +67,10 @@ def rgb_to_sh0(rgb: torch.Tensor) -> torch.Tensor:
     return (rgb - 0.5) / SH0_C
 
 
+def sh0_to_rgb(sh0: torch.Tensor) -> torch.Tensor:
+    return sh0 * SH0_C + 0.5
+
+
 def _logit(p: float) -> float:
     return math.log(p / (1.0 - p))
 
@@ -80,6 +84,7 @@ def init_from_points(
     init_scale: float = 1.0,
     generator: Optional[torch.Generator] = None,
     scale_clamp_quantile: float = 0.0,
+    fixed_scale: Optional[float] = None,
 ) -> GaussianState:
     """Point-cloud initialisation from SfM or monocular-depth points
     (reference runner.py:53-138).
@@ -88,8 +93,10 @@ def init_from_points(
     when the cloud exceeds capacity; random unit quaternions. With
     ``scale_clamp_quantile`` > 0 the kNN distances are first clamped to
     that quantile, so a few isolated points cannot spawn huge gaussians
-    (reference limit_init_scale). Tensors are made on ``points.device``;
-    ``generator`` (on that device) draws the subset and the quaternions."""
+    (reference limit_init_scale). ``fixed_scale`` stands in for every kNN
+    distance and skips the search (benchmark set-ups at millions of
+    points). Tensors are made on ``points.device``; ``generator`` (on that
+    device) draws the subset and the quaternions."""
     dev = points.device
     if generator is None:
         generator = torch.Generator(device=dev)
@@ -100,7 +107,10 @@ def init_from_points(
         points, rgbs = points[sel], rgbs[sel]
     else:
         points, rgbs = points[:n], rgbs[:n]
-    dist = torch.clamp(mean_knn_dist(points, k=3), min=1e-7)
+    if fixed_scale is not None:
+        dist = torch.full((n,), float(fixed_scale), device=dev)
+    else:
+        dist = torch.clamp(mean_knn_dist(points, k=3), min=1e-7)
     if scale_clamp_quantile > 0.0:
         dist = torch.clamp(dist, max=quantile(dist, scale_clamp_quantile))
     scales = torch.log(dist * init_scale)[:, None].repeat(1, 3)

@@ -609,6 +609,14 @@ class Runner:
         """Render one view of ``gstate``, by default the whole state (under
         a mesh gathered: a collective, every rank calls ``render``);
         returns numpy (color [H,W,3], alpha [H,W], depth)."""
+        color, alpha, depth = self._render_on_device(camtoworld, K, width, height, render_mode, gstate)
+        return color.cpu().numpy(), alpha.cpu().numpy(), None if depth is None else depth.cpu().numpy()
+
+    @torch.no_grad()
+    def _render_on_device(self, camtoworld, K, width: int, height: int, render_mode: str = "RGB+ED",
+                          gstate=None):
+        """``render``'s view as tensors on the Runner's device: color [H, W, 3]
+        clamped to [0, 1], alpha [H, W], depth [H, W] or None."""
         cfg = self.cfg
         gstate = gstate if gstate is not None else self.full_gstate()
         p = gstate.params
@@ -632,14 +640,15 @@ class Runner:
             if overflow == 0:
                 break
             cap = retuned_pair_capacity(int(info.binning.tile_starts[-1]) + overflow, overflow, cap)
-        color = out[0, ..., :3].clamp(0.0, 1.0).cpu().numpy()
-        depth = out[0, ..., 3].cpu().numpy() if render_mode == "RGB+ED" else None
-        return color, alpha[0, ..., 0].cpu().numpy(), depth
+        depth = out[0, ..., 3] if render_mode == "RGB+ED" else None
+        return out[0, ..., :3].clamp(0.0, 1.0), alpha[0, ..., 0], depth
 
     def eval(self, step: int, stage: str = "val") -> Dict[str, float]:
-        """PSNR, SSIM (LPIPS, colour-corrected PSNR) over the val split.
-        Under a mesh every rank gathers the state and computes the same
-        numbers; the main process writes the renders, stats and scalars."""
+        """PSNR, SSIM (LPIPS, colour-corrected PSNR) over the val split, on
+        the Runner's device; only the saved canvases and the numbers reach
+        the host. Under a mesh every rank gathers the state and computes the
+        same numbers; the main process writes the renders, stats and
+        scalars."""
         cfg = self.cfg
         psnrs, ssims, times, cc_psnrs, lpipss = [], [], [], [], []
         use_lpips = lpips_available()
@@ -648,19 +657,22 @@ class Runner:
             item = self.valset[i]
             h, w = item["image"].shape[:2]
             t0 = time.time()
-            color, _, _ = self.render(item["camtoworld"], item["K"], w, h, render_mode="RGB", gstate=gstate)
+            color, _, _ = self._render_on_device(
+                item["camtoworld"], item["K"], w, h, render_mode="RGB", gstate=gstate
+            )
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
             times.append(time.time() - t0)
-            c = torch.as_tensor(color)[None]
-            gt = torch.as_tensor(item["image"])[None]
+            c = color[None]
+            gt = torch.as_tensor(item["image"], device=self.device)[None]
             psnrs.append(float(psnr(c, gt)))
             ssims.append(float(ssim(c, gt)))
             if cfg.use_bilateral_grid:
-                cc = color_correct(c.to(self.device), gt.to(self.device)).cpu()
-                cc_psnrs.append(float(psnr(cc, gt)))
+                cc_psnrs.append(float(psnr(color_correct(c, gt), gt)))
             if use_lpips:
-                lpipss.append(float(lpips(c.to(self.device), gt.to(self.device))))
+                lpipss.append(float(lpips(c, gt)))
             if self.is_main and (i < 4 or cfg.save_predictions):
-                canvas = np.concatenate([item["image"], color], axis=1)
+                canvas = np.concatenate([item["image"], color.cpu().numpy()], axis=1)
                 write_png(
                     os.path.join(cfg.result_dir, "renders", f"{stage}_{step}_{i:03d}.png"),
                     (canvas * 255).astype(np.uint8),

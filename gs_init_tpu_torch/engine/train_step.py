@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..config import MCMCStrategyConfig
+from ..ops.projection import view_directions
 from ..ops.rasterize import check_scan
 from ..ops.render import rasterize
 from ..ops.sh import num_sh_bases
@@ -98,7 +99,7 @@ def appearance_rgb(cfg, app, sh0: torch.Tensor, means: torch.Tensor, c2w: torch.
                    image_ids: torch.Tensor, step: int) -> torch.Tensor:
     """[C, N, 3] colours of the appearance MLP (``cfg.app_opt``): embedding
     and feature residuals on the base colour logit sh0."""
-    dirs = means[None, :, :] - c2w[:, None, :3, 3]
+    dirs = view_directions(means, c2w)
     active_deg = min(step // cfg.sh_degree_interval, cfg.sh_degree)
     resid = appearance_colors(app, image_ids, dirs, active_deg, cfg.sh_degree)
     return torch.sigmoid(resid + sh0[None, :, 0, :])

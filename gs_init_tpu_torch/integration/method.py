@@ -31,6 +31,7 @@ from ..config import apply_overrides
 from ..engine.appearance import appearance_colors
 from ..engine.params import SH0_C, num_alive
 from ..engine.runner import Runner
+from ..ops.projection import view_directions
 from ..ops.render import rasterize
 from ..trainer import build_presets
 from ..utils.ply import write_ply_splats
@@ -216,7 +217,7 @@ class GsInitTpuMethod:
         viewmat = torch.linalg.inv(t(camtoworld))[None]
         Kt = t(K)[None]
         target = t(image)[None]
-        dirs = (params.means - t(camtoworld)[:3, 3])[None]
+        dirs = view_directions(params.means, t(camtoworld)[None])
         image_ids = torch.zeros(1, dtype=torch.long, device=dev)
 
         embed = torch.zeros(app.embeds.shape[-1], device=dev)

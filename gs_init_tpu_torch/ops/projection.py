@@ -62,6 +62,12 @@ def covariance_3d_packed(quats, scales):
     return [sum(r[i][k] * r[j][k] * s2[k] for k in range(3)) for (i, j) in _SYM]
 
 
+def covariance_3d(quats: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """Sigma = R diag(s^2) R^T. quats [..., 4], scales [..., 3] -> [..., 3, 3]."""
+    m = quat_to_rotmat(quats) * scales[..., None, :]
+    return m @ m.transpose(-1, -2)
+
+
 def project_gaussians(
     means: torch.Tensor,  # [N, 3]
     quats: torch.Tensor,  # [N, 4]
@@ -96,7 +102,11 @@ def project_gaussians(
     if camera_model == "pinhole":
         tan_fovx = 0.5 * width / fx
         tan_fovy = 0.5 * height / fy
-        inv_z = 1.0 / tz
+        # A gaussian on or behind the near plane is culled below; its
+        # arithmetic runs at depth 1, because at tz == 0 the covariance
+        # holds inf - inf and its zero cotangents times NaN are NaN
+        # gradients (a 10^6-point init cloud over 161 cameras had one).
+        inv_z = 1.0 / torch.where(tz > near_plane, tz, torch.ones_like(tz))
         lim_x, lim_y = 1.3 * tan_fovx, 1.3 * tan_fovy
         txz = torch.clamp(tx * inv_z, -lim_x, lim_x)
         tyz = torch.clamp(ty * inv_z, -lim_y, lim_y)
@@ -184,3 +194,8 @@ def project_gaussians(
     return Projected(
         means2d=mean2d, conics=conic, depths=tz, radii=radii, opacities=opac, extents=extents
     )
+
+
+def view_directions(means: torch.Tensor, camtoworlds: torch.Tensor) -> torch.Tensor:
+    """Unnormalised directions from the camera centres to the gaussians. [C, N, 3]."""
+    return means[None, :, :] - camtoworlds[:, None, :3, 3]

@@ -91,3 +91,26 @@ def test_sh_values_and_grads(rng, degree):
     np.testing.assert_allclose(n(pv), n(jv), rtol=1e-5, atol=1e-6)
     for name, a, b in zip(("coeffs", "dirs"), pg, jg):
         assert_close_scaled(a, b, 1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("antialiased", [False, True])
+def test_gaussian_on_the_camera_plane_has_finite_gradients(rng, antialiased):
+    """A gaussian whose camera-space depth is exactly 0 (one of a 10^6-point
+    init cloud over 161 cameras was) is culled, and its parameters get zero
+    gradients through the render, not NaN: the JAX projection's arithmetic
+    at that depth gives NaN (1/tz = inf, then inf - inf), which Adam then
+    writes into the gaussian's mean, quaternion and scales."""
+    from gs_init_tpu_torch.ops.render import rasterize
+
+    sc = scene(rng, n_g=24)
+    sc["means"][0] = [0.1, -0.2, 0.0]  # tz == 0 under the identity camera
+    sc["means"][1] = [0.1, -0.2, 0.004]  # in front, before the near plane
+    leaves = [t(sc[k]).requires_grad_(True) for k in KEYS]
+    colors = t(sc["colors"]).requires_grad_(True)
+    out, alpha, _ = rasterize(*leaves, colors, t(sc["viewmats"]), t(sc["Ks"]), W, H, tile_size=16,
+                              rasterize_mode="antialiased" if antialiased else "classic")
+    grads = torch.autograd.grad((out * t(_weights(rng, tuple(out.shape)))).sum() + alpha.sum(), leaves + [colors])
+    for name, g in zip(KEYS + ("colors",), grads):
+        assert torch.isfinite(g).all(), name
+        assert (g[:2] == 0).all(), name
+    assert (grads[0][2:] != 0).any()
