@@ -54,7 +54,7 @@ no result line.
    reader must find train/loss, train/num_GS, train/mem_peak_gb and
    val/psnr in the run's TensorBoard event file.
 6. Monocular-depth init. (a) At full width: scripts/e2e_quality.py's
-   clustered scene at 1296x840 with 24 cameras and 250 SfM points (the
+   clustered scene at 1296x840 with 12 cameras and 250 SfM points (the
    foreground only), the stub predictor over the scene's surface depth
    (scale 0.37, shift 1.3), three configurations: the defaults (RANSAC,
    2,500 hypotheses, static stride 10, SfM density mask, SfM points
@@ -63,7 +63,7 @@ no result line.
    init, points out, the recovered scale against 1/0.37 (median and worst
    over images), peak memory. (b) The three arms of E2E_QUALITY.json:
    the clustered scene at 648x420 with 12 cameras, 800 steps with
-   e2e_quality.py's run() settings, for sfm, monocular_depth and sfm+mdi
+   e2e_quality.py's run() settings (a refine at 450), for sfm, monocular_depth and sfm+mdi
    init; both mdi arms' eval PSNR must beat the sfm arm's, and the
    compositor kernels must launch once per train step. Then the sfm arm
    again with the batch prefetch thread off, for its steps per second.
@@ -103,7 +103,7 @@ no result line.
    card against the CPU (within LPIPS_RTOL of the value) and its time per
    eval image, with and without cuDNN; phase 5 again, now with lpips in
    its eval stats and TensorBoard scalars; a two-run sweep (sh_degree 1
-   and 3, 200 steps each) on phase 5's scene through the port's trainer as
+   and 3, 200 steps each, a refine at 100) on phase 5's scene through the port's trainer as
    subprocesses, each run rescored from its saved renders, then the
    results tables with the TensorBoard columns; the Method's lifecycle
    with the appearance embedding (50 steps, save, render,
@@ -124,7 +124,7 @@ no result line.
    outside the pair bounds of each band (must be 0); per rank the step,
    all-gather and gradient all-reduce times and peak memory. (c)
    trainer.main in two processes launched as the JAX trainer's
-   (COORDINATOR_ADDRESS), on phase 5's scene for 300 steps, 2x1 cameras
+   (COORDINATOR_ADDRESS), on phase 5's scene for 200 steps, 2x1 cameras
    (batch 2) and 2x1 bands (batch 1), each beside the one-rank run: the
    loss at every step before the first refine against the one-rank run's
    (CURVE_RTOL over the first 12, PRE_REFINE_RTOL to step 99), eval PSNR
@@ -138,8 +138,8 @@ no result line.
    foreground alone, written through write_colmap_scene), then the entry
    points a user calls: parse_cli with the default preset and override
    strings (init_type monocular_depth with the stub over the expected
-   depth, capacity 3,000,000, 1,500 steps, eval and a checkpoint at 1,500,
-   an opacity reset at 1,000), Runner(cfg, parser, mdi_model=stub).train()
+   depth, capacity 3,000,000, 800 steps, eval and a checkpoint at 800,
+   an opacity reset at 600), Runner(cfg, parser, mdi_model=stub).train()
    and the eval-only restart through trainer.main(["--ckpt", ...]). Held:
    the median recovered scale, a finite loss at every step, the alive
    count rising from the first refine to the last within the capacity,
@@ -167,7 +167,8 @@ no result line.
    mean, finite kNN scales, a finite loss at every step, the refines or
    relocations at the preset's steps, alive within the capacity (default)
    or min(cap_max, capacity) (mcmc) after each, no refine granting more
-   slots than were free, eval PSNR at least PSNR_GAIN_DB over the initial
+   slots than were free, at least one refine granting a slot (default) or
+   one relocation moving a dead gaussian (mcmc), eval PSNR at least PSNR_GAIN_DB over the initial
    gaussians', the card's per-image PSNR and SSIM against the CPU
    (EVAL_PSNR_ATOL, EVAL_SSIM_ATOL), one K1 and one K2 launch per step plus
    K1 per eval render, the scan probe once. Printed: init seconds per
@@ -176,11 +177,41 @@ no result line.
    scale) or relocation (dead moved, added), noise ms per step (CUDA
    events), retunes and overflowed steps, eval ms per image (render,
    metrics, LPIPS), peak memory, launches.
+12. The monocular-depth init's other configurations at garden scale, on
+   phase 11's scene with a second COLMAP model whose images observe every
+   SfM point they see (write_colmap_scene keeps 40 an image). Each arm is
+   parse_cli's defaults plus its overrides, run through
+   pts_and_rgb_from_monocular_depth on the card: (a) MSAC, (c) the
+   interpolated scale map with the thin-plate RBF, (d) SLIC regions
+   (SLIC_CAMERAS cameras), (e) the adaptive stride, (f) LOF and the native
+   KD-split merge, (g) the voxel merge on (f)'s cloud after its LOF; (b),
+   the interpolated scale map over Delaunay, is the init of a training run
+   (parse_cli -> Runner(cfg, parser, mdi_model=stub).train(), the default
+   preset with LOF and the native merge, MDI_TRAIN_STEPS steps, eval).
+   Printed per arm: images and cameras, the largest and median SfM
+   observations per image, seconds per image by stage (SLIC and the region
+   merge within the alignment), points before and after the postprocess,
+   the recovered scale (the pipeline arms: the median over pixels of the
+   aligned depth over the depth that undoes the stub), the card's peak
+   memory and the host's RSS growth. Held: a finite cloud of at least
+   MDI_MIN_POINTS, the median recovered scale within SCALE_RTOL, an
+   interpolate arm's host RSS growth under MDI_HOST_RSS_GIB, LOF keeping
+   LOF_KEEP_MIN of the cloud; LOF's bounded neighbour search against the
+   brute force knn over the same cloud (sampled query blocks, timed) and
+   the scale-outlier test's pixel neighbours against the [M, M] sort,
+   equal apart from ties; the scale-outlier test itself at M =
+   OUTLIER_M seeded pixels, its host RSS growth under MDI_HOST_RSS_GIB and
+   its injected outliers found; the training run's PSNR gain of PSNR_GAIN_DB,
+   one K1 and one K2 launch per step and K1 per eval render, K3 once, no
+   alive gaussian with a non-finite parameter; the deterministic arms on
+   the first CARD_CPU_IMAGES training images on the card against the CPU
+   (equal point counts, points within CARD_CPU_ATOL of the extent).
 
 The line before the last lists the kernels as JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 import contextlib
+import dataclasses
 import gc
 import json
 import os
@@ -1384,12 +1415,17 @@ def surface_depth_stub(scene, parser):
     """scripts/e2e_quality.py's oracle predictor: the scene's surface depth
     per training image (NaN where alpha <= 0.3), in trainset order, under
     the stub's affine distortion (0.37 depth + 1.3)."""
-    from gs_init_tpu_torch.mdi.predictors.stub import StubPredictor
-
-    depths = [
+    return depth_stub([
         np.where(scene.alphas[i] > 0.3, scene.surface_depths[i], np.nan).astype(np.float32)
         for i in parser.split_indices("train")
-    ]
+    ])
+
+
+def depth_stub(depths):
+    """The stub predictor (0.37 depth + 1.3) over depths [H, W], one per
+    call, in order from the first and round again."""
+    from gs_init_tpu_torch.mdi.predictors.stub import StubPredictor
+
     calls = iter(range(1 << 30))
     return StubPredictor(oracle=lambda image, intr: depths[next(calls) % len(depths)], scale=0.37, shift=1.3)
 
@@ -2645,7 +2681,7 @@ def trainer_rank(rank, world, port, argvs, q):
         q.put((rank, "error", traceback.format_exc()))
 
 
-def trainer_on_mesh(steps=300, width=648, height=420):
+def trainer_on_mesh(steps=200, width=648, height=420):
     """Phase 9 (c): trainer.main in two ranks on phase 5's scene, 2x1
     cameras (batch 2) and 2x1 bands (batch 1), each beside the one-rank
     run; rank 0's npz restarts eval-only on one device; the sharded
@@ -2806,9 +2842,10 @@ def multi_gpu(dev, image):
 # Cut to 96 of garden's 185 cameras (cameras are cut first, widths never), so
 # that the phase with its witness, kNN comparison and growth run stays
 # within 300 s (185 cameras took 519 s with the plain kNN searches over
-# every query).
+# every query), and to 800 steps (refines at 600 and 700, an opacity reset
+# at 600), so that the script with phase 12 keeps within its time.
 GARDEN = dict(n_cams=96, width=1296, height=840, n_fg=150_000, n_bg=850_000, n_sfm=100_000,
-              steps=1500, capacity=3_000_000, reset_every=1000)
+              steps=800, capacity=3_000_000, reset_every=600)
 # The growth run: the default preset from a sparser mdi init (static
 # stride 40: the depth points of a view 16x fewer), so that densification
 # grows the cloud; its own step count, no reset within it. The Runner
@@ -3500,8 +3537,10 @@ def garden_path(dev, card, n_cams, width, height, n_fg, n_bg, n_sfm, steps, capa
 # free slot until pruning frees some; the mcmc preset (cap_max = capacity) grows by nothing and relocates
 # onto the full buffer. The argv names no capacity, cap_max, pair table or
 # refine schedule. Widths are garden's; the depth is cut to 1,200 steps
-# (refines or relocations at 600-1,100).
-DEFAULTS = dict(n_cams=185, width=1296, height=840, n_fg=150_000, n_bg=850_000, n_sfm=100_000, steps=1200)
+# (refines or relocations at 600-1,100; the phase holds that one of them
+# grants a slot that pruning freed, or moves a dead gaussian).
+GARDEN_FULL = dict(n_cams=185, width=1296, height=840, n_fg=150_000, n_bg=850_000, n_sfm=100_000)
+DEFAULT_STEPS = 1200
 # The least rise of eval PSNR over the initial gaussians' in each run (dB).
 PSNR_GAIN_DB = 3.0
 # The card's eval metrics against the same formulas on CPU copies of the
@@ -3765,12 +3804,16 @@ def preset_run(preset, data_dir, parser, stub, res, steps, card, dev):
                     f"{r['median']:.5f}" for r in rec["refine"]))
             if any(r["granted"] > r["free"] for r in rec["refine"]):
                 failures.append(f"{preset}: a refine granted more slots than were free")
+            if not any(r["granted"] > 0 for r in rec["refine"]):
+                failures.append(f"{preset}: no refine granted a slot on the full buffer")
         else:
             noise_ms = [a.elapsed_time(b) for a, b in rec["noise"]]
             say(f"relocations (step: ms; dead relocated, added; alive after; median scale after): " + "; ".join(
                 f"{r['step']}: {r['ms']:.3f}; {r['dead']}, {r['added']}; {r['alive']}; {r['median']:.5f}"
                 for r in rec["refine"]) + f"; noise {np.mean(noise_ms):.4f} ms per step (median "
                 f"{np.median(noise_ms):.4f}, {len(noise_ms)} steps, CUDA events)")
+            if not any(r["dead"] > 0 for r in rec["refine"]):
+                failures.append(f"{preset}: no relocation moved a dead gaussian")
         say(f"pair capacity: {len(rec['retune'])} retunes {rec['retune']}, {cfg.pair_capacity} at the end; "
             f"{overflowed} steps overflowed their table")
         rr = ev["calls"] - n_val
@@ -3805,46 +3848,96 @@ def preset_run(preset, data_dir, parser, stub, res, steps, card, dev):
             setattr(obj, name, fn)
 
 
-def default_capacity(dev, card, n_cams, width, height, n_fg, n_bg, n_sfm, steps):
-    """Phase 11: both presets at their default capacity on the 185-camera
-    garden scene, through parse_cli and Runner(cfg, parser,
-    mdi_model=stub).train() (trainer.main takes no predictor object), with
-    random LPIPS weights so that eval times LPIPS too."""
-    import torch
+def garden_files(dev, card, tmp, n_cams, width, height, n_fg, n_bg, n_sfm):
+    """Phase 10's seeded garden scene with n_cams cameras, written as a
+    COLMAP scene under tmp, and a second COLMAP model of it whose images
+    observe every SfM point they see (write_all_observations). Returns
+    (data_dir, its parser, the stub's oracle depth per training image in
+    trainset order: the surface depth, NaN where alpha <= 0.3, the second
+    model's data_dir)."""
     from gs_init_tpu_torch.datasets.parser import Parser
     from gs_init_tpu_torch.datasets.synthetic import write_colmap_scene
 
-    def release():
-        # The timers that wrap a Runner's methods make reference cycles
-        # through it: collect them, or an earlier Runner's buffers stay on
-        # the card and in the next run's peak.
-        gc.collect()
-        torch.cuda.empty_cache()
+    now = time.perf_counter
+    t0 = now()
+    scene, _ = garden_scene(dev, n_cams, width, height, n_fg, n_bg)
+    t1 = now()
+    visible = sfm_visible_depth(scene, n_sfm)
+    data_dir = write_colmap_scene(tmp, scene._replace(surface_depths=visible), n_points=n_sfm)
+    t2 = now()
+    dense_dir = write_all_observations(data_dir, os.path.join(tmp, "dense"), visible)
+    log(f"  [{card}] scene: {n_cams} cameras at {width}x{height}, {len(scene.points)} gaussians, {n_sfm} "
+        f"SfM points; rendered in {t1 - t0:.3f} s, written in {t2 - t1:.3f} s, the model with every "
+        f"observation in {now() - t2:.3f} s")
+    parser = Parser(data_dir, factor=1, test_every=GARDEN_TEST_EVERY)
+    depths = [np.where(scene.alphas[i] > 0.3, scene.surface_depths[i], np.nan).astype(np.float32)
+              for i in parser.split_indices("train")]
+    return data_dir, parser, depths, dense_dir
 
+
+def write_all_observations(data_dir, out_dir, surface_depths):
+    """The COLMAP scene at data_dir again under out_dir (its images linked,
+    not copied), each image now observing every SfM point that passes
+    write_colmap_scene's visibility test against surface_depths, where
+    write_colmap_scene keeps the first 40: an image of a real garden
+    capture observes 10^4 points or more. Returns the new data_dir."""
+    from gs_init_tpu_torch.datasets import colmap_io as cio
+
+    rec = cio.read_reconstruction(os.path.join(data_dir, "sparse/0"))
+    cam = rec.cameras[1]
+    fx, fy, cx, cy = cam.params
+    pts = rec.points_xyz.astype(np.float64)
+    images = {}
+    for i, (iid, im) in enumerate(sorted(rec.images.items())):
+        w2c = np.eye(4)
+        w2c[:3, :3] = cio.qvec_to_rotmat(im.qvec)
+        w2c[:3, 3] = im.tvec
+        c = pts @ w2c[:3, :3].T + w2c[:3, 3]
+        pix = (c[:, :2] / c[:, 2:3]) * [fx, fy] + [cx, cy]
+        ok = (c[:, 2] > 0) & (pix[:, 0] >= 0) & (pix[:, 0] < cam.width) & (pix[:, 1] >= 0) & (pix[:, 1] < cam.height)
+        xi = np.clip(pix[:, 0].astype(np.int64), 0, cam.width - 1)
+        yi = np.clip(pix[:, 1].astype(np.int64), 0, cam.height - 1)
+        surf = surface_depths[i][yi, xi]
+        ok &= np.abs(c[:, 2] - surf) < 0.05 * np.maximum(surf, 1e-6)
+        images[iid] = dataclasses.replace(im, xys=pix[ok], point3D_ids=rec.point_ids[ok])
+    out = os.path.join(out_dir, "scene")
+    os.makedirs(out)
+    os.symlink(os.path.join(data_dir, "images"), os.path.join(out, "images"))
+    cio.write_reconstruction_bin(os.path.join(out, "sparse/0"), dataclasses.replace(rec, images=images))
+    return out
+
+
+def release():
+    """Collect garbage and return the card's cached blocks. The timers that
+    wrap a Runner's methods make reference cycles through it: collect
+    them, or an earlier Runner's buffers stay on the card and in the next
+    run's peak."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def default_capacity(dev, card, garden, steps):
+    """Phase 11: both presets at their default capacity on the 185-camera
+    garden scene (garden_files), through parse_cli and Runner(cfg, parser,
+    mdi_model=stub).train() (trainer.main takes no predictor object), with
+    random LPIPS weights so that eval times LPIPS too."""
     now = time.perf_counter
     t_phase = now()
     env_before = os.environ.get("GS_TPU_CHECKPOINT_DIR")
     failures = []
+    data_dir, parser, depths, _ = garden
     release()
     with tempfile.TemporaryDirectory() as tmp:
         try:
-            t0 = now()
-            scene, _ = garden_scene(dev, n_cams, width, height, n_fg, n_bg)
-            t1 = now()
-            data_dir = write_colmap_scene(
-                tmp, scene._replace(surface_depths=sfm_visible_depth(scene, n_sfm)), n_points=n_sfm)
-            log(f"  [{card}] scene: {n_cams} cameras at {width}x{height}, {len(scene.points)} gaussians, {n_sfm} "
-                f"SfM points; rendered in {t1 - t0:.3f} s, written in {now() - t1:.3f} s")
             ckpt_dir = os.path.join(tmp, "lpips")
             os.makedirs(ckpt_dir)
             write_lpips_weights(ckpt_dir)
             os.environ["GS_TPU_CHECKPOINT_DIR"] = ckpt_dir
-            parser = Parser(data_dir, factor=1, test_every=GARDEN_TEST_EVERY)
-            stubs = {p: TimedPredictor(surface_depth_stub(scene, parser)) for p in ("default", "mcmc")}
-            del scene
             for preset in ("default", "mcmc"):
-                failures += preset_run(preset, data_dir, parser, stubs[preset], os.path.join(tmp, preset), steps,
-                                       card, dev)
+                failures += preset_run(preset, data_dir, parser, TimedPredictor(depth_stub(depths)),
+                                       os.path.join(tmp, preset), steps, card, dev)
                 release()
         finally:
             if env_before is None:
@@ -3854,6 +3947,544 @@ def default_capacity(dev, card, n_cams, width, height, n_fg, n_bg, n_sfm, steps)
     log(f"  [{card}] phase 11 took {now() - t_phase:.1f} s")
     if failures:
         raise RuntimeError("phase 11: " + "; ".join(failures))
+
+
+# Phase 12: the mdi configurations at garden scale, on phase 11's scene.
+# Each arm is the defaults plus its parse_cli overrides, run through
+# pts_and_rgb_from_monocular_depth on the card; (b) is the init of the
+# training run, which adds LOF and the native merge (its points before the
+# postprocess are arm (b)'s cloud), and (g) times the voxel merge on arm
+# (f)'s cloud after its LOF. The last entry of an arm is its cameras: the
+# first that many of the scene's (None: all 185), cut so that the arm keeps
+# within its share of the phase. Under SLIC an image takes ~1.3 s, ~1.1 s
+# of it SLIC and the region merge on the host (NVIDIA H100 80GB HBM3,
+# 700 W): 161 images would be 3.5 minutes.
+SLIC_CAMERAS = 12
+LOF_NATIVE = ["--mdi.postprocess.lof_outlier_removal=true", "--mdi.postprocess.merge_subsample=true"]
+INTERPOLATE = ["--mdi.alignment.method=interpolate"]
+MDI_ARMS = (
+    ("a", "msac", ["--mdi.alignment.method=msac"], None),
+    ("c", "interpolate rbf", INTERPOLATE + ["--mdi.alignment.interp.method=rbf"], None),
+    ("d", "slic", ["--mdi.alignment.segmentation.method=slic"], SLIC_CAMERAS),
+    ("e", "adaptive", ["--mdi.subsampling.method=adaptive"], None),
+    ("f", "lof native", LOF_NATIVE, None),
+)
+TRAIN_ARM = ("b", "interpolate (the training run's init, with LOF and the native merge)", INTERPOLATE + LOF_NATIVE)
+VOXEL = ["--mdi.postprocess.merge_impl=voxel"]
+# The training run from arm (b): the default preset at its own capacity.
+MDI_TRAIN_STEPS = 300
+# Every arm's cloud: finite, at least this many points.
+MDI_MIN_POINTS = 100_000
+# LOF over the foreground's dense clusters must keep at least this share.
+LOF_KEEP_MIN = 0.9
+# An interpolate arm's host RSS may grow by at most this much (GiB): an
+# [M, M] float32 block alone is 1.6 GiB at M = 20,000.
+MDI_HOST_RSS_GIB = 2.0
+# Card against CPU: the deterministic arms on the first 3 training images
+# (image 0 is a test view), points within this share of the cloud's extent.
+CARD_CPU_IMAGES = 3
+CARD_CPU_ATOL = 1e-4
+CARD_CPU_ARMS = (("b, lstsqrs prealign", INTERPOLATE + ["--mdi.alignment.interp.prealign=lstsqrs"]),
+                 ("d, lstsqrs", ["--mdi.alignment.segmentation.method=slic", "--mdi.alignment.method=lstsqrs"]))
+
+
+class HostRss:
+    """The process's resident set, sampled every 2 ms on a thread while the
+    block runs: its growth over the start (GiB, `growth`), beside
+    getrusage's peak RSS growth (`maxrss_growth`)."""
+
+    def __init__(self):
+        self.page = os.sysconf("SC_PAGE_SIZE")
+
+    def now(self):
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self.page
+
+    def __enter__(self):
+        import resource
+        import threading
+
+        self.base = self.peak = self.now()
+        self.maxrss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        self.stop = threading.Event()
+
+        def sample():
+            while not self.stop.wait(0.002):
+                self.peak = max(self.peak, self.now())
+        self.thread = threading.Thread(target=sample, daemon=True)
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        import resource
+
+        self.stop.set()
+        self.thread.join()
+        self.peak = max(self.peak, self.now())
+        self.growth = (self.peak - self.base) / 2**30
+        self.maxrss_growth = (resource.getrusage(resource.RUSAGE_SELF).ru_maxrss - self.maxrss0) / 2**20
+        return False
+
+
+def first_cameras(parser, n):
+    """The parser cut to its first n images (None: all), split as before."""
+    import copy
+
+    if n is None:
+        return parser
+    cut = copy.copy(parser)
+    cut.images = parser.images[:n]
+    return cut
+
+
+def arm_config(data_dir, res, overrides, extra=()):
+    from gs_init_tpu_torch import trainer
+    from gs_init_tpu_torch.config import parse_cli
+
+    argv = ["default", f"--data_dir={data_dir}", "--data_factor=1", f"--result_dir={res}",
+            "--init_type=monocular_depth", "--mdi.predictor=stub", "--mdi.use_cache=false", *overrides, *extra]
+    cfg = parse_cli(argv, trainer.build_presets())
+    cfg.adjust_steps()
+    return cfg
+
+
+class ArmProbe:
+    """Wraps the init's align_depth, postprocess_point_cloud and LOF for
+    one arm, for what the checks need: each pipeline image's median over
+    pixels of the aligned depth over the depth that undoes the stub exactly
+    (the stub's prediction less its shift, times the similarity scale /
+    0.37), the postprocess's cameras, and the cloud that LOF keeps. The
+    times come from the init's own per_image stages and summary."""
+
+    def __init__(self, want_scale):
+        self.want, self.ratios, self.seconds, self.post_args, self.lof_out = want_scale, [], 0.0, None, None
+
+    def __enter__(self):
+        from gs_init_tpu_torch.mdi import init as pinit
+        from gs_init_tpu_torch.mdi import postprocess as ppost
+
+        self.real_align, self.real_post = pinit.align_depth, pinit.postprocess_point_cloud
+
+        def align(pred_depth, pred_mask, *a, **kw):
+            aligned, mask = self.real_align(pred_depth, pred_mask, *a, **kw)
+            t0 = time.perf_counter()
+            exact = self.want * (pred_depth.astype(np.float64) - 1.3)
+            sel = mask & np.isfinite(exact) & (exact > 0)
+            self.ratios.append(float(np.median(aligned[sel] / exact[sel])))
+            self.seconds += time.perf_counter() - t0  # left out of the align stage
+            return aligned, mask
+
+        def post(cfg, pts, rgbs, *a, **kw):
+            self.post_args = a
+            return self.real_post(cfg, pts, rgbs, *a, **kw)
+
+        def lof(*a, **kw):
+            self.lof_out = self.real_lof(*a, **kw)
+            return self.lof_out
+
+        self.real_lof = ppost.lof_outlier_removal
+        pinit.align_depth, pinit.postprocess_point_cloud, ppost.lof_outlier_removal = align, post, lof
+        return self
+
+    def __exit__(self, *exc):
+        from gs_init_tpu_torch.mdi import init as pinit
+        from gs_init_tpu_torch.mdi import postprocess as ppost
+
+        pinit.align_depth, pinit.postprocess_point_cloud = self.real_align, self.real_post
+        ppost.lof_outlier_removal = self.real_lof
+        return False
+
+
+def arm_report(card, tag, name, parser, per, summary, probe, secs, rss, peak, want_scale, pts):
+    """Print one arm's line; returns its failures."""
+    say = lambda s: log(f"  [{card}] ({tag}) {name}: {s}")
+    n_img = len(per)
+    train = [parser.images[int(i)] for i in parser.split_indices("train")]
+    m = np.array([len(parser.point_indices[im.name]) for im in train])
+    stages, parts = {}, {}
+    for r in per:
+        for into, got in ((stages, r["stages"]), (parts, r["align_parts"])):
+            for k, v in got.items():
+                into[k] = into.get(k, 0.0) + v
+    if "align" in stages:
+        stages["align"] -= probe.seconds
+    pipeline = bool(probe.ratios)
+    ratio = np.array(probe.ratios if pipeline else [r["scale"] / want_scale for r in per])
+    worst = float(ratio[np.argmax(np.abs(ratio - 1))])
+    med = float(np.median(ratio))
+    host = secs - sum(stages.values()) - summary["postprocess_seconds"]
+    post = ", ".join(f"{k} {v[0]:.3f} s ({v[1]} points)" for k, v in summary["postprocess"].items())
+    say(f"{n_img} images of {parser.num_images} cameras; M (SfM observations per image) largest {m.max()}, median "
+        f"{int(np.median(m))}; {secs:.3f} s in all, {secs / n_img:.4f} s per image: "
+        + ", ".join(f"{k} {v / n_img:.4f}" + (" (segment " + f"{parts['segment'] / n_img:.4f}, region merge "
+                                                f"{parts['merge'] / n_img:.4f})" if k == "align" and parts else "")
+                    for k, v in stages.items())
+        + f", host rest {host / n_img:.4f}; postprocess {summary['postprocess_seconds']:.3f} s"
+        + (f" ({post})" if post else "")
+        + f"; points {summary['points_before']} before the postprocess, {summary['points_after']} after; "
+        f"{'aligned / exact depth, median over pixels per image' if pipeline else 'scale / (similarity scale / 0.37)'}: "
+        f"median {med:.5f}, worst {worst:.5f}; card peak {peak:.3f} GiB; host RSS growth {rss.growth:.3f} GiB "
+        f"(getrusage peak {rss.maxrss_growth:.3f} GiB)")
+    failures = []
+    if not (len(pts) >= MDI_MIN_POINTS and np.isfinite(pts).all()):
+        failures.append(f"({tag}) no finite cloud of {MDI_MIN_POINTS} points ({len(pts)})")
+    if abs(med - 1) > SCALE_RTOL:
+        failures.append(f"({tag}) the median recovered scale is {med:.5f}")
+    return failures
+
+
+def run_arm(dev, card, tag, name, overrides, cameras, data_dir, parser, depths, want_scale, res):
+    """One arm through pts_and_rgb_from_monocular_depth on the card.
+    Returns (failures, the probe, the cloud)."""
+    import torch
+    from gs_init_tpu_torch.mdi.init import pts_and_rgb_from_monocular_depth
+
+    cut = first_cameras(parser, cameras)
+    cfg = arm_config(data_dir, res, overrides)
+    per, summary = [], {}
+    release()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with ArmProbe(want_scale) as probe, HostRss() as rss:
+        t0 = time.perf_counter()
+        pts, rgbs = pts_and_rgb_from_monocular_depth(cfg, cut, model=depth_stub(depths), device=dev,
+                                                     per_image=per, summary=summary)
+        torch.cuda.synchronize(dev)
+        secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    failures = arm_report(card, tag, name, cut, per, summary, probe, secs, rss, peak, want_scale, pts)
+    if "interpolate" in name and rss.growth > MDI_HOST_RSS_GIB:
+        failures.append(f"({tag}) host RSS grew {rss.growth:.3f} GiB")
+    return failures, probe, (pts, rgbs), cfg
+
+
+def query_sample(n, chunk=2048):
+    """Every KNN_QUERY_STRIDE-th block of chunk queries of n: (indices,
+    share of all blocks)."""
+    n_blocks = -(-n // chunk)
+    starts = range(0, n_blocks, KNN_QUERY_STRIDE)
+    idx = np.concatenate([np.arange(b * chunk, min(n, (b + 1) * chunk)) for b in starts])
+    return idx, len(starts) / n_blocks
+
+
+class LofProbe:
+    """Wraps the LOF's neighbour search (ops.lof.knn_self): times each call
+    (synchronised) and keeps the points and the sampled queries' result of
+    the largest."""
+
+    def __init__(self, dev):
+        self.dev, self.calls = dev, []
+
+    def __enter__(self):
+        import torch
+        from gs_init_tpu_torch.ops import lof as plof
+
+        self.real = plof.knn_self
+
+        def f(points, k, chunk=2048):
+            torch.cuda.synchronize(self.dev)
+            t0 = time.perf_counter()
+            d, i = self.real(points, k, chunk=chunk)
+            torch.cuda.synchronize(self.dev)
+            secs = time.perf_counter() - t0
+            sample, share = query_sample(len(points), chunk)
+            s = torch.as_tensor(sample, device=points.device)
+            self.calls.append(dict(points=points, k=k, chunk=chunk, seconds=secs, sample=s, share=share,
+                                   d=d[s], i=i[s]))
+            return d, i
+
+        plof.knn_self = f
+        return self
+
+    def __exit__(self, *exc):
+        from gs_init_tpu_torch.ops import lof as plof
+
+        plof.knn_self = self.real
+        return False
+
+
+def lof_against_brute_force(card, call, dev):
+    """The LOF's bounded search over the arm's cloud (one LofProbe call)
+    against the port's brute force knn over the same cloud, on every
+    KNN_QUERY_STRIDE-th block of queries, its time scaled to all blocks:
+    squared distances within KNN_ULP float32 ulp of |p|^2 + d^2, indices
+    apart only where the two candidates' distances are that close (a tie
+    to the arithmetic). Returns the failures."""
+    import torch
+    from gs_init_tpu_torch.ops import knn as pknn
+
+    p, s, k = call["points"], call["sample"], call["k"]
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev) / 2**30
+    t0 = time.perf_counter()
+    d_b, i_b = pknn.knn(p[s], p, k, chunk=call["chunk"])
+    torch.cuda.synchronize(dev)
+    brute = time.perf_counter() - t0
+    brute_peak = torch.cuda.max_memory_allocated(dev) / 2**30 - held
+    d, i, d_b = call["d"].double(), call["i"], d_b.double()
+    q = p[s].double()
+    ulp = float(np.finfo(np.float32).eps) * ((q**2).sum(-1, keepdim=True) + d_b**2)
+    gap = float(((d**2 - d_b**2).abs() / ulp).max())
+    # Where the indices differ, the point the bounded search put there must
+    # lie at the brute force's distance to the arithmetic: a tie.
+    apart = i != i_b
+    d_there = ((q[:, None, :] - p[i].double()) ** 2).sum(-1)
+    untied = apart & ((d_there - d_b**2).abs() > KNN_ULP * ulp)
+    log(f"  [{card}] LOF's neighbour search over {len(p)} points, k = {k}: bounded (knn_self) {call['seconds']:.3f} s; "
+        f"the brute force knn {brute / call['share']:.3f} s for the cloud ({brute:.3f} s over {len(s)} queries, "
+        f"every {KNN_QUERY_STRIDE}th block, {brute_peak:.3f} GiB above what was held); on those queries "
+        f"|d^2 - d'^2| at most {gap:.2f} float32 ulp of |p|^2 + d^2, {int(apart.sum())} of {apart.numel()} "
+        f"indices apart, {int(untied.sum())} of them not at a tie")
+    if gap > KNN_ULP or int(untied.sum()):
+        return [f"LOF's bounded neighbour search disagrees with the brute force ({gap:.2f} ulp, "
+                f"{int(untied.sum())} untied indices)"]
+    return []
+
+
+def card_against_cpu(dev, card, data_dir, parser, depths, res):
+    """The deterministic arms on the first CARD_CPU_IMAGES training images,
+    on the card and through the port's CPU path. Returns the failures."""
+    import torch
+    from gs_init_tpu_torch.mdi.init import pts_and_rgb_from_monocular_depth
+
+    cut = first_cameras(parser, CARD_CPU_IMAGES + 1)
+    failures = []
+    for tag, overrides in CARD_CPU_ARMS:
+        clouds, secs = [], []
+        for d in (dev, torch.device("cpu")):
+            cfg = arm_config(data_dir, res, overrides)
+            t0 = time.perf_counter()
+            clouds.append(pts_and_rgb_from_monocular_depth(cfg, cut, model=depth_stub(depths), device=d)[0])
+            secs.append(time.perf_counter() - t0)
+        (a, b), extent = clouds, float(np.abs(clouds[1]).max())
+        err = float(np.abs(a - b).max()) / extent if a.shape == b.shape else float("inf")
+        log(f"  [{card}] card against CPU ({tag}), {len(cut.split_indices('train'))} images: {len(a)} and {len(b)} "
+            f"points, max |diff| {err:.3e} of the extent {extent:.3f}; {secs[0]:.3f} s on the card, {secs[1]:.3f} s "
+            "on the CPU")
+        if a.shape != b.shape or err > CARD_CPU_ATOL:
+            failures.append(f"card against CPU ({tag}): {len(a)} vs {len(b)} points, {err:.3e} of the extent")
+    return failures
+
+
+def mdi_training(dev, card, data_dir, parser, depths, want_scale, res, steps):
+    """parse_cli -> Runner(cfg, parser, mdi_model=stub).train() from arm
+    (b) with LOF and the native merge, the default preset at its own
+    capacity: eval of the initial gaussians, `steps` steps, eval. Its init
+    is arm (b): printed as one. Returns the failures."""
+    import torch
+    from gs_init_tpu_torch import kernels
+    from gs_init_tpu_torch.engine import runner as prunner
+
+    tag, name, overrides = TRAIN_ARM
+    cfg = arm_config(data_dir, res, overrides, [f"--max_steps={steps}", f"--eval_steps=[{steps}]"])
+    real_mdi, real_rast = prunner.pts_and_rgb_from_monocular_depth, prunner.rasterize
+    init, renders = {}, [0]
+
+    def mdi(*a, **kw):
+        per, summary = [], {}
+        torch.cuda.reset_peak_memory_stats(dev)
+        with ArmProbe(want_scale) as probe, HostRss() as rss:
+            t0 = time.perf_counter()
+            out = real_mdi(*a, per_image=per, summary=summary, **kw)
+            torch.cuda.synchronize(dev)
+            secs = time.perf_counter() - t0
+        init.update(per=per, summary=summary, probe=probe, secs=secs, rss=rss, pts=out[0],
+                    peak=torch.cuda.max_memory_allocated(dev) / 2**30)
+        return out
+
+    def counted(*a, **kw):
+        renders[0] += 1
+        return real_rast(*a, **kw)
+
+    release()
+    prunner.pts_and_rgb_from_monocular_depth, prunner.rasterize = mdi, counted
+    try:
+        runner = prunner.Runner(cfg, parser=parser, mdi_model=depth_stub(depths), device=dev)
+        failures = arm_report(card, tag, name, parser, init["per"], init["summary"], init["probe"], init["secs"],
+                              init["rss"], init["peak"], want_scale, init["pts"])
+        if init["rss"].growth > MDI_HOST_RSS_GIB:
+            failures.append(f"({tag}) host RSS grew {init['rss'].growth:.3f} GiB")
+        n0 = int(runner.gstate.alive.sum())
+        psnr0 = runner.eval(0)["psnr"]
+        renders[0] = 0
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        stats = runner.train()
+        torch.cuda.synchronize(dev)
+        t_train = time.perf_counter() - t0
+        launches = dict(stats["kernel_launches"])
+    finally:
+        prunner.pts_and_rgb_from_monocular_depth, prunner.rasterize = real_mdi, real_rast
+    g = runner.gstate
+    bad = torch.zeros_like(g.alive)
+    for _, v in g.params.items():
+        bad |= ~torch.isfinite(v.reshape(v.shape[0], -1)).all(-1)
+    n_bad = int((bad & g.alive).sum())
+    with open(os.path.join(res, "stats", f"val_step{steps}.json")) as f:
+        val = json.load(f)
+    want = dict(composite_fwd=steps + renders[0], composite_bwd=steps, scan_probe=1)
+    log(f"  [{card}] training from arm (b): {n0} gaussians alive of {cfg.max_gaussians} after init; {steps} steps "
+        f"and eval in {t_train:.3f} s, peak {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB; eval PSNR "
+        f"{psnr0:.4f} (initial) -> {val['psnr']:.4f} over {len(runner.valset)} views; alive gaussians with a "
+        f"non-finite parameter: {n_bad}; launches in train() {json.dumps(launches)} (want {json.dumps(want)})")
+    if not val["psnr"] - psnr0 >= PSNR_GAIN_DB:
+        failures.append(f"training from arm (b): eval PSNR rose {val['psnr'] - psnr0:.4f} dB")
+    if n_bad:
+        failures.append(f"training from arm (b): {n_bad} alive gaussians with a non-finite parameter")
+    if any(launches[k] != v for k, v in want.items()):
+        failures.append(f"training from arm (b): launches {launches}, not {want}")
+    return failures
+
+
+def pixel_knn_against_sort(card, parser, dev, k=8):
+    """The scale-outlier test's pixel neighbours as the port finds them
+    (mdi/alignment/interp.py: knn_self in float64 about the centroid, on
+    the card) against the JAX package's form (an [M, M] float32 distance
+    matrix argsorted on the host), on the training image with the most SfM
+    observations: the same k neighbours apart from ties in the float32
+    matrix. Returns the failures."""
+    import torch
+    from gs_init_tpu_torch.mdi.points_from_depth import project_sfm_points
+    from gs_init_tpu_torch.ops.knn import knn_self
+
+    train = [parser.images[int(i)] for i in parser.split_indices("train")]
+    im = max(train, key=lambda im: len(parser.point_indices[im.name]))
+    t = lambda x: torch.as_tensor(np.asarray(x, np.float32))
+    idx = parser.point_indices[im.name]
+    pix, _, ok = project_sfm_points(t(parser.points[idx]), torch.ones(len(idx), dtype=torch.bool),
+                                    torch.linalg.inv(t(im.camtoworld)), t(im.K), im.width, im.height)
+    p = pix.numpy()[ok.numpy()]
+    with HostRss() as rss:
+        t0 = time.perf_counter()
+        d2 = ((p[:, None, :] - p[None, :, :]) ** 2).sum(-1)
+        want = np.argsort(d2, axis=1)[:, 1 : k + 1]
+        t_sort = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    q64 = p.astype(np.float64)
+    got = knn_self(torch.as_tensor(q64 - q64.mean(0), device=dev), k + 1)[1][:, 1:].cpu().numpy()
+    t_knn = time.perf_counter() - t0
+    rows = np.arange(len(p))[:, None]
+    apart = got != want
+    untied = apart & (d2[rows, got] != d2[rows, want])
+    log(f"  [{card}] the scale-outlier test's {k} pixel neighbours on {im.name} (M = {len(p)}): knn_self on the card "
+        f"{t_knn:.4f} s; the [M, M] sort on the host {t_sort:.4f} s, host RSS growth {rss.growth:.3f} GiB; "
+        f"{int(apart.sum())} of {apart.size} apart, {int(untied.sum())} of them not at a tie")
+    if int(untied.sum()):
+        return [f"the pixel neighbours disagree with the sort at {int(untied.sum())} untied places"]
+    return []
+
+
+# The scale-outlier test at the M of a densely observed image: seeded
+# pixels over the frame, scale factors on a smooth field with noise, a
+# share of them multiplied by 1.5-3 (the outliers). The JAX form's [M, M]
+# float32 distance matrix alone is 6.4 GB here, its argsort 12.8 GB.
+OUTLIER_M = 40_000
+OUTLIER_SHARE = 0.02
+# The test must drop at least this share of the injected outliers and keep
+# at least this share of the rest.
+OUTLIER_FOUND_MIN = 0.9
+INLIER_KEPT_MIN = 0.9
+
+
+def scale_outliers_at_scale(card, dev, width=1296, height=840, seed=12):
+    """interp._scale_outliers on the card at M = OUTLIER_M, with the
+    interpolation's default thresholds: its host RSS growth held under
+    MDI_HOST_RSS_GIB, the injected outliers found. Returns the failures."""
+    import torch
+    from gs_init_tpu_torch.config.config import InterpolatedAlignmentConfig
+    from gs_init_tpu_torch.mdi.alignment.interp import _scale_outliers
+
+    rng = np.random.default_rng(seed)
+    m = OUTLIER_M
+    pix = rng.uniform([0, 0], [width, height], (m, 2)).astype(np.float32)
+    f = (1 + 1e-4 * (pix[:, 0] - width / 2) / width + rng.normal(0, 1e-3, m)).astype(np.float32)
+    out = np.zeros(m, bool)
+    out[rng.choice(m, int(OUTLIER_SHARE * m), replace=False)] = True
+    f[out] *= rng.uniform(1.5, 3.0, int(out.sum())).astype(np.float32)
+    icfg = InterpolatedAlignmentConfig()
+    with HostRss() as rss:
+        t0 = time.perf_counter()
+        keep = _scale_outliers(pix, f, np.ones(m, bool), knn_k=icfg.knn_median_neighbors,
+                               knn_threshold=icfg.knn_median_threshold, lof_k=icfg.lof_neighbors,
+                               lof_threshold=icfg.lof_threshold, device=dev)
+        torch.cuda.synchronize(dev)
+        secs = time.perf_counter() - t0
+    found, kept = float((~keep[out]).mean()), float(keep[~out].mean())
+    log(f"  [{card}] the scale-outlier test at M = {m} (seeded pixels over {width}x{height}, {int(out.sum())} "
+        f"outliers): {secs:.3f} s on the card; host RSS growth {rss.growth:.3f} GiB (getrusage peak "
+        f"{rss.maxrss_growth:.3f} GiB); outliers dropped {found:.4f}, the rest kept {kept:.4f}")
+    failures = []
+    if rss.growth > MDI_HOST_RSS_GIB:
+        failures.append(f"the scale-outlier test at M = {m}: host RSS grew {rss.growth:.3f} GiB")
+    if found < OUTLIER_FOUND_MIN or kept < INLIER_KEPT_MIN:
+        failures.append(f"the scale-outlier test at M = {m}: dropped {found:.4f} of the outliers, kept {kept:.4f} "
+                        "of the rest")
+    return failures
+
+
+def voxel_arm(dev, card, probe, data_dir, res, native_points):
+    """Arm (g): the voxel merge in place of the native one, on arm (f)'s
+    cloud after its LOF. Returns the failures."""
+    import torch
+    from gs_init_tpu_torch.mdi.postprocess import postprocess_point_cloud
+
+    cfg = arm_config(data_dir, res, ["--mdi.postprocess.merge_subsample=true", *VOXEL])
+    pts, rgbs = probe.lof_out
+    timings = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    with HostRss() as rss:
+        t0 = time.perf_counter()
+        out, _ = postprocess_point_cloud(cfg, pts, rgbs, *probe.post_args, device=dev, timings=timings)
+        secs = time.perf_counter() - t0
+    log(f"  [{card}] (g) voxel merge on arm (f)'s {len(pts)} points after LOF: {len(out)} points out (the native "
+        f"merge: {native_points}); {secs:.3f} s: extents {timings['extents'][0]:.3f} s, merge "
+        f"{timings['merge'][0]:.3f} s; card peak {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB; host RSS "
+        f"growth {rss.growth:.3f} GiB")
+    if not (len(out) >= MDI_MIN_POINTS and np.isfinite(out).all()):
+        return [f"(g) no finite cloud of {MDI_MIN_POINTS} points ({len(out)})"]
+    return []
+
+
+def mdi_configurations(dev, card, garden):
+    """Phase 12: the monocular-depth init's other configurations at garden
+    scale on phase 11's scene with every observation (garden_files), each
+    through parse_cli and
+    pts_and_rgb_from_monocular_depth on the card; arm (b) as the init of a
+    training run; the deterministic arms card against CPU."""
+    from gs_init_tpu_torch.datasets.parser import Parser
+
+    t_phase = time.perf_counter()
+    _, _, depths, data_dir = garden
+    parser = Parser(data_dir, factor=1, test_every=GARDEN_TEST_EVERY)
+    want_scale = float(np.cbrt(np.linalg.det(parser.transform[:3, :3]))) / 0.37
+    log(f"  [{card}] the model with every observation read in {time.perf_counter() - t_phase:.3f} s")
+    failures = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, name, overrides, cameras in MDI_ARMS:
+            with LofProbe(dev) as lof:
+                f, probe, (pts, _), cfg = run_arm(dev, card, tag, name, overrides, cameras, data_dir, parser, depths,
+                                                  want_scale, os.path.join(tmp, tag))
+            failures += f
+            if tag == "f":
+                n_in, n_kept = len(lof.calls[-1]["points"]), len(probe.lof_out[0])
+                log(f"  [{card}] (f) LOF kept {n_kept} of {n_in} points, dropped {1 - n_kept / n_in:.4f}")
+                if n_kept < LOF_KEEP_MIN * n_in:
+                    failures.append(f"(f) LOF kept {n_kept} of {n_in} points")
+                failures += lof_against_brute_force(card, lof.calls[-1], dev)
+                lof.calls.clear()
+                failures += voxel_arm(dev, card, probe, data_dir, os.path.join(tmp, "g"), len(pts))
+            del probe, pts
+            release()
+        failures += pixel_knn_against_sort(card, parser, dev)
+        failures += scale_outliers_at_scale(card, dev)
+        failures += mdi_training(dev, card, data_dir, parser, depths, want_scale, os.path.join(tmp, "train"),
+                                 MDI_TRAIN_STEPS)
+        release()
+        failures += card_against_cpu(dev, card, data_dir, parser, depths, os.path.join(tmp, "cpu"))
+    log(f"  [{card}] phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        raise RuntimeError("phase 12: " + "; ".join(failures))
 
 
 # --------------------------------------------------------------------- main
@@ -3912,7 +4543,7 @@ def main():
     runner_e2e()
 
     with tempfile.TemporaryDirectory() as tmp:
-        scene, data_dir = clustered_colmap(tmp, 1296, 840, 24, dev)
+        scene, data_dir = clustered_colmap(tmp, 1296, 840, 12, dev)
         log(f"phase 6a: monocular-depth init at full width ({time.perf_counter() - t_start:.1f} s)")
         mdi_init_full_width(dev, scene, data_dir)
         log(f"phase 6b: the three arms, sfm, monocular_depth and sfm+mdi; sfm without prefetch "
@@ -3957,7 +4588,13 @@ def main():
     torch.cuda.empty_cache()
 
     log(f"phase 11: both presets at their default capacity at garden scale ({time.perf_counter() - t_start:.1f} s)")
-    default_capacity(dev, card, **DEFAULTS)
+    release()
+    with tempfile.TemporaryDirectory() as tmp:
+        garden = garden_files(dev, card, tmp, **GARDEN_FULL)
+        default_capacity(dev, card, garden, DEFAULT_STEPS)
+        log(f"phase 12: the mdi configurations at garden scale ({time.perf_counter() - t_start:.1f} s)")
+        mdi_configurations(dev, card, garden)
+        del garden
 
     log(f"total {time.perf_counter() - t_start:.3f} s")
     log(card)

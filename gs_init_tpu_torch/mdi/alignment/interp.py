@@ -6,7 +6,16 @@ scale factors gt / prealigned, drop scale outliers (kNN median and LOF),
 interpolate a dense scale map (Delaunay with scipy on the host, or a
 thin-plate RBF on the device) on a coarse grid, upsample it bilinearly and
 multiply. When interpolation fails the median factor is the scale.
-Host numpy in and out; the RANSAC, LOF and TPS run on ``device``.
+Host numpy in and out; the RANSAC, the neighbour searches, LOF and TPS run
+on ``device``.
+
+Two repairs keep an image with 10^4-10^5 correspondences within bounds,
+with the JAX function's results: the pixel neighbours of the scale-outlier
+test come from the bounded search ``ops/knn.knn_self`` where the JAX
+package sorts an [M, M] distance matrix on the host (12.8 GB at M =
+40,000), and the TPS is fitted on the ``max_rbf_points`` kept centres
+alone where the JAX package solves an [M, M] system whose other rows are
+identity rows with zero weight.
 """
 from __future__ import annotations
 
@@ -16,6 +25,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ...ops.knn import knn_self
 from ...ops.lof import lof_scores
 from ...ops.rbf import tps_interpolate_grid, upsample_bilinear
 from .lstsqrs import weighted_scale_shift
@@ -40,8 +50,12 @@ def _scale_outliers(
         return valid
     p = pix[idx]
     f = factors[idx]
-    d2 = ((p[:, None, :] - p[None, :, :]) ** 2).sum(-1)
-    nn = np.argsort(d2, axis=1)[:, 1 : knn_k + 1]
+    # The knn_k nearest other pixels, in float64 about the centroid: only
+    # pixels whose distances tie in the JAX package's float32 [M, M] matrix
+    # may come in another order than its sort.
+    q64 = p.astype(np.float64)
+    q = torch.as_tensor(q64 - q64.mean(0), device=device)
+    nn = knn_self(q, knn_k + 1)[1][:, 1:].cpu().numpy()
     med = np.median(f[nn], axis=1)
     mad = np.median(np.abs(f[nn] - med[:, None]), axis=1) + 1e-6
     keep = np.abs(f - med) <= knn_threshold * 3.0 * mad

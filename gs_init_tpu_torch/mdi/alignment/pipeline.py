@@ -12,6 +12,7 @@ Host orchestration, once per image at init; the fits run on ``device``.
 from __future__ import annotations
 
 import logging
+import time
 from typing import Optional
 
 import numpy as np
@@ -61,8 +62,11 @@ def align_depth(
     rbf_seed: int = 0,  # seeds the max_rbf_points subsets
     device=None,
     normals: Optional[np.ndarray] = None,  # [H, W, 3], for SAM's sam_use_normals
+    timings: Optional[dict] = None,
 ):
-    """Returns (aligned depth [H, W], mask [H, W]) as numpy."""
+    """Returns (aligned depth [H, W], mask [H, W]) as numpy. ``timings``,
+    when given and a segmenter is set, receives the seconds of the
+    segmentation (``segment``) and of the region merge (``merge``)."""
     h, w = pred_depth.shape
     xs = np.clip(sfm_pix[:, 0].astype(int), 0, w - 1)
     ys = np.clip(sfm_pix[:, 1].astype(int), 0, h - 1)
@@ -76,6 +80,7 @@ def align_depth(
             pred_depth, pred_at, sfm_depth, sfm_pix, valid, acfg.method, **region
         )
         return aligned, np.asarray(pred_mask).copy()
+    t0 = time.perf_counter()
     if seg.method == "slic":
         labels = slic_depth(
             pred_depth, np.asarray(pred_mask),
@@ -90,10 +95,13 @@ def align_depth(
         )
     else:
         raise NotImplementedError(f"unknown segmenter {seg.method!r}")
+    t1 = time.perf_counter()
     labels = merge_regions(
         labels, pred_depth, sfm_pix[valid],
         gradient_threshold=seg.merge_gradient_threshold, min_sfm_points=seg.merge_min_sfm_points,
     )
+    if timings is not None:
+        timings.update(segment=t1 - t0, merge=time.perf_counter() - t1)
     aligned = np.full((h, w), INVALID_DEPTH, np.float32)
     mask = np.zeros((h, w), bool)
     pt_labels = labels[ys, xs]

@@ -103,15 +103,25 @@ def pts_and_rgb_from_monocular_depth(
     generator: Optional[torch.Generator] = None,
     device=None,
     per_image: Optional[List[dict]] = None,
+    summary: Optional[dict] = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Build the initial point cloud from per-image depth predictions.
 
     ``generator`` (on ``device``; seeded from ``cfg.seed`` when None) draws
     the RANSAC hypotheses, image after image. ``per_image``, when given,
     receives one dict per aligned image: ``name``, ``scale``, ``shift``,
-    ``points`` and ``seconds`` (synchronised). On the pipeline path
-    (segmentation or an interpolated scale) the scale and shift reported
-    are a least-squares fit of the aligned depth on the prediction.
+    ``points`` and ``seconds`` (synchronised), and ``stages``, the seconds
+    of its stages: ``predict`` (its share of the batch's prediction), then
+    on the pipeline path (segmentation or an interpolated scale) ``align``
+    (``align_depth``) and ``unproject`` (masks and unprojection), else
+    ``align_and_unproject`` (``points_from_depth``, one pass on the
+    device); and ``align_parts``, the seconds within ``align`` of the
+    segmentation (``segment``) and the region merge (``merge``), empty with
+    no segmenter. On the pipeline path the scale and shift reported are a
+    least-squares fit of the aligned depth on the prediction. ``summary``,
+    when given, receives ``points_before`` and ``points_after`` the
+    postprocess, its ``postprocess_seconds`` and its stages
+    (``postprocess_point_cloud``'s timings).
     Returns (points [N, 3], colours [N, 3]), float32 numpy."""
     mdi = cfg.mdi
     dev = resolve_device(device)
@@ -121,6 +131,7 @@ def pts_and_rgb_from_monocular_depth(
     rbf_rng = np.random.default_rng([cfg.seed, 1])  # seeds of the max_rbf_points subsets
     trainset = Dataset(parser, "train")
     T = lambda x, dt=torch.float32: torch.as_tensor(np.asarray(x), dtype=dt, device=dev)
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
 
     # One SfM padding size for every image.
     m_pad = max(int(max((len(v) for v in parser.point_indices.values()), default=1)), 1)
@@ -142,9 +153,12 @@ def pts_and_rgb_from_monocular_depth(
     n_skipped = 0
     for start in range(0, len(trainset), bs):
         items = [trainset[i] for i in range(start, min(start + bs, len(trainset)))]
+        t_pred = time.perf_counter()
         preds = _predict_or_cached(cfg, model, items)
+        t_pred = (time.perf_counter() - t_pred) / len(items)
         for it, (depth, mask, normal) in zip(items, preds):
             t0 = time.perf_counter()
+            stages, parts = {"predict": t_pred}, {}
             h, w = it["image"].shape[:2]
             idx = parser.point_indices.get(it["image_name"], np.empty(0, np.int64))
             sfm = np.zeros((m_pad, 3), np.float32)
@@ -167,16 +181,21 @@ def pts_and_rgb_from_monocular_depth(
                         "skipping %s: only %.0f%% of SfM points valid", it["image_name"], 100 * frac
                     )
                     continue
+                t1 = time.perf_counter()
                 aligned, amask = align_depth(
                     np.asarray(depth, np.float32), np.asarray(mask),
                     pix.cpu().numpy(), gt_z.cpu().numpy(), ok.cpu().numpy(), mdi.alignment,
-                    generator=gen, rbf_seed=rbf_seed, device=dev, normals=normal,
+                    generator=gen, rbf_seed=rbf_seed, device=dev, normals=normal, timings=parts,
                 )
+                t2 = time.perf_counter()
                 aligned_t = T(aligned)
                 world, m = masks_and_unproject(
                     aligned_t, T(amask, torch.bool), c2w, K, pix, ok,
                     width=w, height=h, **subsample_kw,
                 )
+                if per_image is not None:
+                    sync()
+                    stages.update(align=t2 - t1, unproject=time.perf_counter() - t2)
                 s = t = None
                 if per_image is not None:
                     # Zeros, not NaN, where the prediction is invalid: the fit
@@ -188,6 +207,7 @@ def pts_and_rgb_from_monocular_depth(
                         torch.where(keep, aligned_t, zero).reshape(-1), keep.float().reshape(-1),
                     )
             else:
+                t1 = time.perf_counter()
                 out = points_from_depth(
                     depth_t, mask_t, c2w, K, T(sfm), T(valid, torch.bool), generator=gen,
                     width=w, height=h,
@@ -198,6 +218,9 @@ def pts_and_rgb_from_monocular_depth(
                     **subsample_kw,
                 )
                 frac = float(out.valid_sfm_fraction)
+                if per_image is not None:
+                    sync()
+                    stages["align_and_unproject"] = time.perf_counter() - t1
                 if frac < mdi.alignment.min_valid_sfm_fraction:
                     n_skipped += 1
                     _LOGGER.warning(
@@ -218,11 +241,10 @@ def pts_and_rgb_from_monocular_depth(
                 stem = os.path.splitext(it["image_name"])[0].replace("/", "_")
                 write_ply_points(os.path.join(d, f"mdi_{stem}.ply"), pts.cpu().numpy(), rgb.cpu().numpy())
             if per_image is not None:
-                if dev.type == "cuda":
-                    torch.cuda.synchronize(dev)
+                sync()
                 per_image.append(dict(
                     name=it["image_name"], scale=float(s), shift=float(t), points=len(pts),
-                    seconds=time.perf_counter() - t0,
+                    seconds=time.perf_counter() - t0, stages=stages, align_parts=parts,
                 ))
 
     if not all_pts:
@@ -242,10 +264,14 @@ def pts_and_rgb_from_monocular_depth(
     train = [parser.images[int(i)] for i in parser.split_indices("train")]
     vms = np.stack([np.linalg.inv(im.camtoworld) for im in train])
     Kmats = np.stack([im.K for im in train])
+    n_before, t_post, timings = len(pts), time.perf_counter(), {}
     pts, rgbs = postprocess_point_cloud(
         cfg, pts, rgbs, vms, Kmats, [im.width for im in train], [im.height for im in train],
-        device=dev,
+        device=dev, timings=timings,
     )
+    if summary is not None:
+        summary.update(points_before=n_before, points_after=len(pts),
+                       postprocess_seconds=time.perf_counter() - t_post, postprocess=timings)
     if mdi.export_ply or mdi.pts_only or mdi.pts_output_dir:
         out_dir = mdi.pts_output_dir or cfg.result_dir
         os.makedirs(out_dir, exist_ok=True)

@@ -37,9 +37,10 @@ def slic_depth(
     centers = np.array([(y, x, d[y, x]) for y in cy for x in cx], np.float64)
     k = len(centers)
 
-    yy, xx = np.mgrid[0:h, 0:w]
+    ys, xs = np.arange(h), np.arange(w)
     labels = np.zeros((h, w), np.int32)
     dists = np.full((h, w), np.inf)
+    flat_y, flat_x, flat_d = np.repeat(ys, w), np.tile(xs, h), d.ravel()
     # Spatial normalization: ds/s; feature weight 1/compactness as in skimage
     # (compactness trades color-vs-space; small => follow depth).
     for _ in range(n_iters):
@@ -47,32 +48,27 @@ def slic_depth(
         for i, (yc, xc, fc) in enumerate(centers):
             y0, y1 = max(int(yc) - s, 0), min(int(yc) + s + 1, h)
             x0, x1 = max(int(xc) - s, 0), min(int(xc) + s + 1, w)
-            dy = (yy[y0:y1, x0:x1] - yc) / s
-            dx = (xx[y0:y1, x0:x1] - xc) / s
+            # Each pixel's terms as the JAX package forms them, the spatial
+            # ones per row and column.
+            dy = (ys[y0:y1] - yc) / s
+            dx = (xs[x0:x1] - xc) / s
             df = (d[y0:y1, x0:x1] - fc) / max(compactness, 1e-12)
-            dist = df * df + dy * dy + dx * dx
+            dist = df * df + (dy * dy)[:, None] + (dx * dx)[None, :]
             better = dist < dists[y0:y1, x0:x1]
-            dists[y0:y1, x0:x1][better] = dist[better]
-            labels[y0:y1, x0:x1][better] = i
+            np.copyto(dists[y0:y1, x0:x1], dist, where=better)
+            np.copyto(labels[y0:y1, x0:x1], i, where=better)
+        # Each region's mean over its pixels in row-major order, as the
+        # boolean selection of the JAX package takes them (a stable sort
+        # keeps that order, so the float means are the same).
+        by_label = np.argsort(labels.ravel().astype(np.int16 if k < 1 << 15 else np.int32), kind="stable")
+        bounds = np.searchsorted(labels.ravel()[by_label], np.arange(k + 1))
         for i in range(k):
-            sel = labels == i
-            if sel.any():
-                centers[i] = (
-                    yy[sel].mean(),
-                    xx[sel].mean(),
-                    d[sel].mean(),
-                )
+            sel = by_label[bounds[i] : bounds[i + 1]]
+            if len(sel):
+                centers[i] = (flat_y[sel].mean(), flat_x[sel].mean(), flat_d[sel].mean())
     # Compact label ids.
     uniq, labels = np.unique(labels, return_inverse=True)
     return labels.reshape(h, w).astype(np.int32)
-
-
-def _border_pairs(labels: np.ndarray):
-    """(label_a, label_b, grad) for horizontally/vertically adjacent pixels
-    of different regions, where grad is measured on the supplied map later."""
-    lr = np.stack([labels[:, :-1].ravel(), labels[:, 1:].ravel()], 1)
-    ud = np.stack([labels[:-1, :].ravel(), labels[1:, :].ravel()], 1)
-    return lr, ud
 
 
 def merge_regions(
@@ -88,44 +84,43 @@ def merge_regions(
     Merge criterion per the reference: a region merges when its lowest
     mean-border depth gradient is below threshold OR it contains fewer than
     min_sfm_points; it merges into the neighbor with the smallest shared-
-    border gradient."""
+    border gradient.
+
+    The per-pixel sums are numpy reductions; the JAX package's copy loops
+    over every border pixel and SfM point in Python. Both sum each border
+    in the same pixel order and visit the borders in the order of their
+    first pixel, so the labels are the same (NaN depths included, whose
+    comparisons depend on that order)."""
     h, w = labels.shape
     labels = labels.copy()
     d = depth.astype(np.float64)
+    ys = np.clip(sfm_xy[:, 1].astype(int), 0, h - 1)
+    xs = np.clip(sfm_xy[:, 0].astype(int), 0, w - 1)
+
+    # |depth difference| of every horizontal and every vertical pixel pair.
+    gh, gv = np.abs(d[:, :-1] - d[:, 1:]), np.abs(d[:-1, :] - d[1:, :])
 
     def stats():
-        # mean |depth difference| across each region boundary
-        pairs = {}
-        for a, b, g in _iter_border(labels, d):
-            key = (min(a, b), max(a, b))
-            s, c = pairs.get(key, (0.0, 0))
-            pairs[key] = (s + g, c + 1)
-        return {k: s / c for k, (s, c) in pairs.items()}
-
-    def _iter_border(lab, dm):
-        la, lb = lab[:, :-1], lab[:, 1:]
-        ga = np.abs(dm[:, :-1] - dm[:, 1:])
-        sel = la != lb
-        yield from zip(la[sel].ravel(), lb[sel].ravel(), ga[sel].ravel())
-        la, lb = lab[:-1, :], lab[1:, :]
-        ga = np.abs(dm[:-1, :] - dm[1:, :])
-        sel = la != lb
-        yield from zip(la[sel].ravel(), lb[sel].ravel(), ga[sel].ravel())
-
-    def sfm_counts(lab):
-        counts = {}
-        ys = np.clip(sfm_xy[:, 1].astype(int), 0, h - 1)
-        xs = np.clip(sfm_xy[:, 0].astype(int), 0, w - 1)
-        for l in lab[ys, xs]:
-            counts[l] = counts.get(l, 0) + 1
-        return counts
+        # mean |depth difference| across each region boundary; the
+        # horizontal pairs first, each set in row-major order
+        hs, vs = labels[:, :-1] != labels[:, 1:], labels[:-1, :] != labels[1:, :]
+        la = np.concatenate([labels[:, :-1][hs], labels[:-1, :][vs]]).astype(np.int64)
+        lb = np.concatenate([labels[:, 1:][hs], labels[1:, :][vs]]).astype(np.int64)
+        g = np.concatenate([gh[hs], gv[vs]])
+        lo, hi = np.minimum(la, lb), np.maximum(la, lb)
+        keys, first, inv = np.unique(lo * (int(hi.max(initial=0)) + 1) + hi, return_index=True,
+                                     return_inverse=True)
+        sums = np.bincount(inv, weights=g, minlength=len(keys))  # in pixel order, per border
+        counts = np.bincount(inv, minlength=len(keys))
+        return {(lo[j], hi[j]): sums[u] / counts[u]
+                for u, j in sorted(enumerate(first), key=lambda uj: uj[1])}
 
     for _ in range(max_iters):
         border = stats()
         if not border:
             break
-        counts = sfm_counts(labels)
-        regions = np.unique(labels)
+        counts = np.bincount(labels[ys, xs], minlength=labels.max() + 1)
+        regions = np.flatnonzero(np.bincount(labels.ravel()))
         if len(regions) <= 1:
             break
         # Candidate: region whose best border gradient is lowest, or with
@@ -140,7 +135,7 @@ def merge_regions(
             if not nbrs:
                 continue
             g, nbr = min(nbrs)
-            few_pts = counts.get(r, 0) < min_sfm_points
+            few_pts = counts[r] < min_sfm_points
             if (g < gradient_threshold or few_pts) and g < best_grad:
                 best_region, best_grad, best_nbr = r, g, nbr
         if best_region is None:

@@ -8,12 +8,14 @@ queries and points with a running top-k, so its peak memory is
 24 GB at N = 3M).
 
 ``knn_sq_dists`` (behind ``mean_knn_dist``, the reference's kNN scale
-initialisation) finds the same k smallest values as the brute force, from
-the same per-pair arithmetic, without visiting every pair: the points are
-put in Morton order and cut into blocks of ``chunk``; each query block
-first takes a bound from its ``BOUND_BLOCKS`` nearest blocks by bounding
-box, then visits only the other blocks whose box lies within that bound:
-on a surface-like cloud a few dozen blocks per block, not all of them.
+initialisation) and ``knn_self`` (behind ``ops/lof.py`` and the scale
+outliers of ``mdi/alignment/interp.py``, with indices) find the same k
+nearest points of a cloud among itself as the brute force, from the same
+per-pair arithmetic, without visiting every pair: the points are put in
+Morton order and cut into blocks of ``chunk``; each query block first
+takes a bound from its ``BOUND_BLOCKS`` nearest blocks by bounding box,
+then visits only the other blocks whose box lies within that bound: on a
+surface-like cloud a few dozen blocks per block, not all of them.
 """
 from __future__ import annotations
 
@@ -59,13 +61,13 @@ def knn(
     return torch.sqrt(torch.cat(out_d).clamp(min=0.0)), torch.cat(out_i)
 
 
-def knn_sq_dists(points: torch.Tensor, k: int, chunk: int = 2048) -> torch.Tensor:
-    """Squared distances [N, k] to the k nearest points [N, 3] (self
-    included), nearest first, clamped at 0: the values ``knn(points,
-    points, k)`` squares, visiting only blocks that can hold a neighbour."""
+def _bounded_search(points: torch.Tensor, k: int, chunk: int, indices: bool):
+    """The k smallest squared distances [N, k] from each point to the
+    points (self included), nearest first, clamped at 0, and with
+    ``indices`` their point indices [N, k] (else None)."""
     n = points.shape[0]
-    dev = points.device
-    order = torch.as_tensor(morton_order(points.detach().cpu().numpy()).astype(np.int64), device=dev)
+    dev, dt = points.device, points.dtype
+    order = torch.as_tensor(morton_order(_as_3d(points)).astype(np.int64), device=dev)
     p = points[order]
     p_sq = (p * p).sum(-1)
     nb = -(-n // chunk)
@@ -80,7 +82,7 @@ def knn_sq_dists(points: torch.Tensor, k: int, chunk: int = 2048) -> torch.Tenso
     per_group = max(1, MAX_BLOCK_ELEMS // (chunk * chunk))
     rows = lambda j: slice(j * chunk, min(n, (j + 1) * chunk))
 
-    def scan(qi, blocks, best):
+    def scan(qi, blocks, best_d, best_i):
         q = p[rows(qi)]
         q_sq = p_sq[rows(qi)][:, None]
         for g in range(0, len(blocks), per_group):
@@ -88,24 +90,61 @@ def knn_sq_dists(points: torch.Tensor, k: int, chunk: int = 2048) -> torch.Tenso
             pb = torch.cat([p[rows(j)] for j in grp])
             pb_sq = torch.cat([p_sq[rows(j)] for j in grp])
             d2 = q_sq - 2.0 * q @ pb.T + pb_sq[None, :]
-            best = torch.topk(torch.cat([best, d2], dim=1), k, dim=1, largest=False).values
-        return best
+            best_d, sel = torch.topk(torch.cat([best_d, d2], dim=1), k, dim=1, largest=False)
+            if indices:
+                # Winners from the previous best (sel < k) keep their index;
+                # the others are rows of this group, in Morton order.
+                cand = torch.cat([torch.arange(rows(j).start, rows(j).stop, device=dev) for j in grp])
+                keep = sel < k
+                best_i = torch.where(keep, torch.gather(best_i, 1, torch.where(keep, sel, 0)),
+                                     cand[(sel - k).clamp(min=0)])
+        return best_d, best_i
 
     first = torch.topk(box_d2, min(BOUND_BLOCKS, nb), dim=1, largest=False).indices.tolist()
     best = []
     for qi in range(nb):
-        inf = torch.full((rows(qi).stop - rows(qi).start, k), float("inf"), device=dev)
-        best.append(scan(qi, first[qi], inf))
-    bound = torch.stack([b[:, -1].max() for b in best])  # each block's worst k-th distance
+        m = rows(qi).stop - rows(qi).start
+        init_i = torch.zeros((m, k), dtype=torch.int64, device=dev) if indices else None
+        best.append(scan(qi, first[qi], torch.full((m, k), float("inf"), dtype=dt, device=dev), init_i))
+    bound = torch.stack([b[0][:, -1].max() for b in best])  # each block's worst k-th distance
     visit = (box_d2 <= bound[:, None] + margin).cpu()
     for qi in range(nb):
         visit[qi, first[qi]] = False
         rest = torch.nonzero(visit[qi]).flatten().tolist()
         if rest:
-            best[qi] = scan(qi, rest, best[qi])
-    out = torch.empty((n, k), dtype=points.dtype, device=dev)
-    out[order] = torch.cat(best).clamp(min=0.0)
-    return out
+            best[qi] = scan(qi, rest, *best[qi])
+    d2 = torch.empty((n, k), dtype=dt, device=dev)
+    d2[order] = torch.cat([b[0] for b in best]).clamp(min=0.0)
+    if not indices:
+        return d2, None
+    idx = torch.empty((n, k), dtype=torch.int64, device=dev)
+    idx[order] = order[torch.cat([b[1] for b in best])]
+    return d2, idx
+
+
+def _as_3d(points: torch.Tensor) -> np.ndarray:
+    """The first three coordinates on the host, zero-padded below three:
+    what the Morton order is taken over (any order gives the same result;
+    this one makes the blocks compact)."""
+    p = points.detach()[:, :3].cpu().numpy()
+    return np.pad(p, ((0, 0), (0, 3 - p.shape[1])))
+
+
+def knn_sq_dists(points: torch.Tensor, k: int, chunk: int = 2048) -> torch.Tensor:
+    """Squared distances [N, k] to the k nearest points [N, D] (self
+    included), nearest first, clamped at 0: the values ``knn(points,
+    points, k)`` squares, visiting only blocks that can hold a neighbour."""
+    return _bounded_search(points, k, chunk, indices=False)[0]
+
+
+def knn_self(points: torch.Tensor, k: int, chunk: int = 2048):
+    """(dists [N, k], idx [N, k] int64) of the k nearest points [N, D] to
+    each point, self included (column 0, distance ~0), nearest first: what
+    ``knn(points, points, k)`` returns, by the bounded search. Points at
+    exactly equal distances may come in another order than the brute
+    force's."""
+    d2, idx = _bounded_search(points, k, chunk, indices=True)
+    return torch.sqrt(d2), idx
 
 
 def mean_knn_dist(points: torch.Tensor, k: int = 3, chunk: int = 2048) -> torch.Tensor:

@@ -8,15 +8,16 @@ Tolerances: 1e-5 abs/rel for elementwise values; exact for masks and
 indices. kNN distances within 1e-5 abs (|x|^2 + |y|^2 - 2 x.y in two BLAS
 orders). World points within 1e-5 of their scale (a 3x3 inverse and two
 products in two orders). Two closed forms are looser, for the reason
-stated at each: a (s, t) fit is 2x2 normal equations from f32 sums taken in
-two orders, solved through differences of products that cancel (det = a00
-a11 - a01^2 loses about log10(mean^2 / var) of the prediction's digits):
-1e-5 where the depths span a wide range, 1e-4 after a LO refit over a
-hundred points, 1e-3 for depths in [2.2, 2.6] (mean^2 / var ~ 400). The
-TPS solve is a dense f32 system whose condition grows with the squared
-coordinates: 7e4 for centres in [0, 6], so its weights and affine part
-agree to the forward-error bound cond x eps = 5e-3 of their largest, and the
-interpolant they define to 1e-4 of the values.
+stated at each: a (s, t) fit is 2x2 normal equations, summed in float32 by
+the JAX package (in float64 by the port), solved through differences of
+products that cancel (det = a00 a11 - a01^2 loses about log10(mean^2 /
+var) of the prediction's float32 digits): 1e-5 where the depths span a
+wide range, 1e-4 after a LO refit over a hundred points, 1e-3 for depths
+in [2.2, 2.6] (mean^2 / var ~ 400). The TPS solve is a dense f32 system
+whose condition grows with the squared coordinates: 7e4 for centres in [0,
+6], so its weights and affine part agree to the forward-error bound cond x
+eps = 5e-3 of their largest, and the interpolant they define (the port's
+grid solves in float64) to 1e-4 of the values.
 """
 import jax
 import jax.numpy as jnp

@@ -10,9 +10,12 @@ with the SfM points' own depths at their pixels, so every correspondence is
 exact: every non-degenerate RANSAC hypothesis and its refit land on the
 same (s, t), whichever hypotheses are drawn (the port draws its own).
 Tolerances: point counts and colours exactly; points within 2e-4 of the
-cloud's extent (each image's (s, t) is an f32 fit over ~40 points whose
-normal equations the two packages sum in two orders: up to 7e-5 relative
-apart, measured per image on this scene);
+cloud's extent (each image's (s, t) is a fit over ~40 points whose normal
+equations the JAX package sums in float32 and the port in float64: up to
+7e-5 relative apart, measured per image on this scene), for every
+configuration of the init: RANSAC and MSAC, least squares with LOF and
+either merge, the interpolated scale map over Delaunay or the RBF, SLIC
+regions and the adaptive stride;
 initial log-scales within 1e-3 abs from the two Runners (their clouds
 differ by up to 2e-4 of the extent, which moves kNN distances near 0.1 by
 up to 1e-3 relative) and within 1e-5 from the same cloud.
@@ -100,11 +103,33 @@ def _configs(data_dir, tmp_path, variant):
             c.mdi.alignment.method = "interpolate"
             c.mdi.alignment.interp.prealign = "lstsqrs"
             c.mdi.alignment.interp.rbf_grid_width = 32
+        elif variant == "msac":
+            c.mdi.alignment.method = "msac"
+            c.mdi.alignment.ransac.inlier_threshold = 1e-6  # as "ransac"
+        elif variant == "interpolate_rbf":
+            c.mdi.alignment.method = "interpolate"
+            c.mdi.alignment.interp.method = "rbf"
+            c.mdi.alignment.interp.prealign = "lstsqrs"
+            c.mdi.alignment.interp.rbf_grid_width = 32
+        elif variant == "slic":
+            c.mdi.alignment.segmentation.method = "slic"
+            c.mdi.alignment.segmentation.merge_min_sfm_points = 3
+            c.mdi.alignment.ransac.inlier_threshold = 1e-6
+        elif variant == "adaptive":
+            c.mdi.alignment.method = "lstsqrs"
+            c.mdi.subsampling.method = "adaptive"
+        elif variant == "voxel":
+            c.mdi.alignment.method = "lstsqrs"
+            c.mdi.postprocess.lof_outlier_removal = True
+            c.mdi.postprocess.lof_neighbors = 8
+            c.mdi.postprocess.merge_subsample = True
+            c.mdi.postprocess.merge_impl = "voxel"
         cfgs.append(c)
     return cfgs
 
 
-@pytest.mark.parametrize("variant", ["ransac", "lstsqrs_lof_native", "interpolate_delaunay"])
+@pytest.mark.parametrize("variant", ["ransac", "lstsqrs_lof_native", "interpolate_delaunay", "msac", "interpolate_rbf",
+                                     "slic", "adaptive", "voxel"])
 def test_pts_and_rgb_matches_jax(colmap_scene, tmp_path, variant):
     from gs_init_tpu.datasets.parser import Parser as JParser
 
@@ -124,9 +149,13 @@ def test_pts_and_rgb_matches_jax(colmap_scene, tmp_path, variant):
     assert len(per_image) == len(pparser.split_indices("train"))
     assert sum(r["points"] for r in per_image) + len(pparser.points) >= len(pp)
     # Every image's fit undoes the stub's 0.37 up to the parser's one
-    # similarity scale (the Delaunay map's fit is near 1 too).
-    ratio = np.array([r["scale"] for r in per_image]) * 0.37
-    assert np.ptp(ratio) < (1e-2 if variant == "interpolate_delaunay" else 5e-4) * ratio.mean()
+    # similarity scale (the Delaunay map's fit is near 1 too). Under SLIC
+    # an image whose regions all hold too few SfM points keeps no point
+    # (and reports the degenerate fit (1, 0)).
+    fitted = np.array([r["points"] > 0 for r in per_image])
+    assert fitted.all() or (variant == "slic" and fitted.mean() >= 0.5)
+    ratio = np.array([r["scale"] for r in per_image])[fitted] * 0.37
+    assert np.ptp(ratio) < (1e-2 if variant.startswith("interpolate") else 5e-4) * ratio.mean()
 
 
 def test_runner_initial_state_matches_jax(colmap_scene, tmp_path):
