@@ -90,8 +90,9 @@ no result line.
    automatic mask generator on one of phase 6a's 1296x840 images (seconds,
    masks kept, at the default filters and with every mask passing them);
    Runner(cfg) with the stub depth aligned per SAM region
-   (segmentation.method="sam", ViT-H) on phase 6a's scene into 20 train
-   steps, one launch of each compositor kernel per step.
+   (segmentation.method="sam", ViT-H) on phase 6a's scene (its first
+   SAM_CAMERAS cameras) into 20 train steps, one launch of each compositor
+   kernel per step.
 7. The trainer entry point: gs_init_tpu_torch.trainer.main on phase 5's
    scene, once per preset, 300 steps with checkpoints at 150 and 300, PLY
    export and compression; eval PSNR must rise, MCMC's alive count stay
@@ -124,7 +125,7 @@ no result line.
    outside the pair bounds of each band (must be 0); per rank the step,
    all-gather and gradient all-reduce times and peak memory. (c)
    trainer.main in two processes launched as the JAX trainer's
-   (COORDINATOR_ADDRESS), on phase 5's scene for 200 steps, 2x1 cameras
+   (COORDINATOR_ADDRESS), on phase 5's scene for 150 steps, 2x1 cameras
    (batch 2) and 2x1 bands (batch 1), each beside the one-rank run: the
    loss at every step before the first refine against the one-rank run's
    (CURVE_RTOL over the first 12, PRE_REFINE_RTOL to step 99), eval PSNR
@@ -161,7 +162,7 @@ no result line.
    mdi init cloud (~1.68M points) exceeds the presets' max_gaussians of
    1,000,000. Per preset, parse_cli with no capacity, cap_max, pair-table
    or refine override, Runner(cfg, parser, mdi_model=stub), an eval of the
-   initial gaussians, train() for 1,200 steps with the preset's refines
+   initial gaussians, train() for 800 steps with the preset's refines
    (default) or relocations and noise (mcmc), and its eval. Held: the
    Runner's subset line, alive == 1,000,000 after init with no repeated
    mean, finite kNN scales, a finite loss at every step, the refines or
@@ -183,11 +184,13 @@ no result line.
    parse_cli's defaults plus its overrides, run through
    pts_and_rgb_from_monocular_depth on the card: (a) MSAC, (c) the
    interpolated scale map with the thin-plate RBF, (d) SLIC regions
-   (SLIC_CAMERAS cameras), (e) the adaptive stride, (f) LOF and the native
+   (SLIC_CAMERAS cameras), (e) the adaptive stride ((a), (c) and (e) on
+   ARM_CAMERAS cameras), (f) LOF and the native
    KD-split merge, (g) the voxel merge on (f)'s cloud after its LOF; (b),
-   the interpolated scale map over Delaunay, is the init of a training run
-   (parse_cli -> Runner(cfg, parser, mdi_model=stub).train(), the default
-   preset with LOF and the native merge, MDI_TRAIN_STEPS steps, eval).
+   the interpolated scale map over Delaunay on ARM_CAMERAS cameras, is the
+   init of a training run (parse_cli -> Runner(cfg, parser,
+   mdi_model=stub).train(), the default preset with LOF and the native
+   merge, MDI_TRAIN_STEPS steps, eval).
    Printed per arm: images and cameras, the largest and median SfM
    observations per image, seconds per image by stage (SLIC and the region
    merge within the alignment), points before and after the postprocess,
@@ -206,6 +209,37 @@ no result line.
    alive gaussian with a non-finite parameter; the deterministic arms on
    the first CARD_CPU_IMAGES training images on the card against the CPU
    (equal point counts, points within CARD_CPU_ATOL of the extent).
+13. The depth cache and the Runner on a mesh at garden scale, on phase 11's
+   scene (161 training images at 1296x840). (a) parse_cli with the default
+   predictor and backbone (Metric3D large, random weights) and the cache in
+   a temporary directory, on the first CACHE_CAMERAS cameras; a cold pts_and_rgb_from_monocular_depth that
+   predicts and writes every entry, then a warm one whose predictor raises
+   if it is asked. Held: one .npz per training image in the JAX layout
+   (depth, mask, normal at the image's size), no *.tmp left, the warm cloud
+   equal to the cold one to the bit with the same per-image scales and
+   shifts. Printed: seconds per image by stage (the network and the cache
+   write, or the cache read), the cache's bytes, card peak and host RSS
+   growth. (b) The stub's predictions written into a second cache; two
+   processes sharing cuda:0 over gloo, each a rank of a 1x2 gaussian mesh
+   running the default preset at its capacity of 1,000,000 from that cache
+   (rank 0 reads every entry and broadcasts the ~1.68M-point cloud; every
+   rank keeps the same uniform subset), eval of the initial gaussians,
+   MESH_STEPS steps with refines at 100 and 200 on the gathered state, eval,
+   rank 0's npz and the sharded checkpoint; beside them a one-rank Runner
+   with the same config. Held: rank 0 read every entry and predicted
+   nothing, 1,000,000 alive on each rank, the same initial state on both
+   ranks and on one device, the loss against the one-rank run (CURVE_RTOL
+   over CURVE_STEPS, PRE_REFINE_RTOL to step 99), the refines at 100 and 200
+   with equal alive counts and grants on both ranks, the retunes at 0, 100
+   and 200 equal on both ranks, eval PSNR above the initial gaussians' and
+   within MESH_PSNR_ATOL of the one-rank run's, one K1 and K2 launch per
+   step plus K1 per eval render and K3 once per rank, the sharded checkpoint
+   restored onto one device equal to the npz to the bit, trainer.main --ckpt
+   on the npz reproducing the PSNR to RESTART_PSNR_ATOL. Printed per rank:
+   set-up seconds (init, broadcast, subset, kNN), steps/s per 100 steps,
+   the step's all-gather, backward and gradient all-reduce ms (CUDA events
+   at its marks), each refine with the gather and slice of the state,
+   checkpoint bytes and seconds, card peak and host RSS growth.
 
 The line before the last lists the kernels as JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1494,9 +1528,16 @@ def mdi_init_full_width(dev, scene, data_dir):
                 raise RuntimeError(f"mdi init [{setup.__name__}]: the stub's scale was not recovered")
 
 
+# Phase 6b's sfm arm without the prefetch thread, for its rate: the arms'
+# config (strategy schedule of an 800-step run) cut to 300 steps, before
+# its refine at 450, so that the script with phase 13 keeps within its time.
+NO_PREFETCH_STEPS = 300
+
+
 def three_arms(dev, steps=800, width=648, height=420, n_cams=12):
     """Phase 6b: E2E_QUALITY.json's scenario through the port's Runner; then
-    the sfm arm again with the batch prefetch thread off, for its rate."""
+    the sfm arm again with the batch prefetch thread off, for its rate
+    (NO_PREFETCH_STEPS of the same config)."""
     import torch
     from gs_init_tpu_torch import kernels
     from gs_init_tpu_torch.config import Config
@@ -1508,13 +1549,14 @@ def three_arms(dev, steps=800, width=648, height=420, n_cams=12):
         scene, data_dir = clustered_colmap(tmp, width, height, n_cams, dev)
         for arm, prefetch in (("sfm", 2), ("monocular_depth", 2), ("sfm+mdi", 2), ("sfm", 0)):
             label = arm if prefetch else f"{arm}, no prefetch"
+            n_steps = steps if prefetch else NO_PREFETCH_STEPS
             init_type = "sfm" if arm == "sfm" else "monocular_depth"
             # scripts/e2e_quality.py run()'s settings.
             cfg = Config(
                 data_dir=data_dir, data_factor=1, data_prefetch=prefetch,
                 result_dir=os.path.join(tmp, label.replace("+", "_").replace(", ", "_").replace(" ", "_")),
-                max_steps=steps, test_every=8, sh_degree=2, max_gaussians=131072,
-                init_type=init_type, batch_size=1, eval_steps=[], save_steps=[steps], tb_every=200,
+                max_steps=n_steps, test_every=8, sh_degree=2, max_gaussians=131072,
+                init_type=init_type, batch_size=1, eval_steps=[], save_steps=[n_steps], tb_every=200,
             )
             cfg.mdi.include_sfm_points = arm == "sfm+mdi"
             cfg.auto_pair_capacity = False
@@ -1539,11 +1581,11 @@ def three_arms(dev, steps=800, width=648, height=420, n_cams=12):
             torch.cuda.synchronize()
             t2 = time.perf_counter()
             launches = dict(kernels.LAUNCHES)
-            stats = runner.eval(steps)
+            stats = runner.eval(n_steps)
             n_val = len(runner.valset)
-            want = dict(composite_fwd=steps + n_val, composite_bwd=steps)
-            log(f"  arm {label}: init {t1 - t0:.3f} s ({n0} gaussians), {steps} steps in {t2 - t1:.3f} s "
-                f"({steps / (t2 - t1):.3f} steps/s), {stats['num_GS']} gaussians at the end; eval PSNR "
+            want = dict(composite_fwd=n_steps + n_val, composite_bwd=n_steps)
+            log(f"  arm {label}: init {t1 - t0:.3f} s ({n0} gaussians), {n_steps} steps in {t2 - t1:.3f} s "
+                f"({n_steps / (t2 - t1):.3f} steps/s), {stats['num_GS']} gaussians at the end; eval PSNR "
                 f"{stats['psnr']:.4f}, SSIM {stats['ssim']:.4f}; launches in train() "
                 f"{json.dumps({k: launches[k] for k in want})} (want {json.dumps(want)}: one per step, "
                 f"and the forward once per view of train()'s final eval)")
@@ -1952,11 +1994,17 @@ def sam_full_width(dev, scene):
     torch.cuda.empty_cache()
 
 
+# Phase 6d's SAM-segmented init runs on the scene's first SAM_CAMERAS
+# cameras (5 training images; the generator takes ~1.7 s an image), so
+# that the script with phase 13 keeps within its time.
+SAM_CAMERAS = 6
+
+
 def sam_runner_e2e(dev, scene, data_dir, steps=20):
     """Phase 6d (4): Runner(cfg) with the stub's surface depth aligned per
     SAM region (ViT-H, random weights, segmentation.method="sam") on the
-    clustered scene, then 20 train steps with one launch of each
-    compositor kernel per step."""
+    clustered scene's first SAM_CAMERAS cameras, then 20 train steps with
+    one launch of each compositor kernel per step."""
     import torch
     from gs_init_tpu_torch import kernels
     from gs_init_tpu_torch.config import Config
@@ -1972,7 +2020,7 @@ def sam_runner_e2e(dev, scene, data_dir, steps=20):
         cfg.mdi.use_cache = False
         seg = cfg.mdi.alignment.segmentation
         seg.method, seg.sam_allow_random_weights = "sam", True
-        parser = Parser(data_dir, factor=1, test_every=8)
+        parser = first_cameras(Parser(data_dir, factor=1, test_every=8), SAM_CAMERAS)
         t0 = time.perf_counter()
         runner = Runner(cfg, parser=parser, mdi_model=surface_depth_stub(scene, parser), device=dev)
         torch.cuda.synchronize()
@@ -2600,7 +2648,7 @@ def spawn_ranks(target, world, *args, timeout=900):
         for _ in procs:
             rank, status, out = q.get(timeout=timeout)
             if status != "ok":
-                raise RuntimeError(f"phase 9: rank {rank} of {world} failed:\n{out}")
+                raise RuntimeError(f"rank {rank} of {world} failed:\n{out}")
             results[rank] = out
     finally:
         for p in procs:
@@ -2681,7 +2729,7 @@ def trainer_rank(rank, world, port, argvs, q):
         q.put((rank, "error", traceback.format_exc()))
 
 
-def trainer_on_mesh(steps=200, width=648, height=420):
+def trainer_on_mesh(steps=150, width=648, height=420):
     """Phase 9 (c): trainer.main in two ranks on phase 5's scene, 2x1
     cameras (batch 2) and 2x1 bands (batch 1), each beside the one-rank
     run; rank 0's npz restarts eval-only on one device; the sharded
@@ -2843,19 +2891,27 @@ def multi_gpu(dev, image):
 # that the phase with its witness, kNN comparison and growth run stays
 # within 300 s (185 cameras took 519 s with the plain kNN searches over
 # every query), and to 800 steps (refines at 600 and 700, an opacity reset
-# at 600), so that the script with phase 12 keeps within its time.
+# at 600), so that the script with phase 12 keeps within its time. Not
+# earlier: at 400 steps with refines at 200 and 300 after a reset at 200,
+# the second refine pruned more than it grew, where the phase holds the
+# alive count rising from the first refine to the last.
 GARDEN = dict(n_cams=96, width=1296, height=840, n_fg=150_000, n_bg=850_000, n_sfm=100_000,
               steps=800, capacity=3_000_000, reset_every=600)
 # The growth run: the default preset from a sparser mdi init (static
 # stride 40: the depth points of a view 16x fewer), so that densification
 # grows the cloud; its own step count, no reset within it. The Runner
-# regrows an overflowed pair table at its next logged step (every 100 steps):
-# 1,300 steps put one (1,200) after the overflow that the refine at 1,100
-# brings (12 steps after it in a 1,200-step run, NVIDIA H100 80GB HBM3,
-# 700 W).
-GROWTH_STEPS = 1300
+# regrows an overflowed pair table at its next logged step (every 100 steps)
+# or, where a refine's growth overflows the very next step, at that step.
+# The default preset's refines from step 600 took 1,300 steps to bring an
+# overflow (after the refine at 1,100; 152,391 -> 414,387 alive). A lower
+# growth threshold and refines from step 200 do it in 700: 152,391 ->
+# 552,149 alive over the refines at 200-600, the table grown at 401, 500
+# and 601 (NVIDIA H100 80GB HBM3, 700 W; chip_measure.py growth-variants,
+# which also runs grow_grad2d 1e-4 over 800 steps).
+GROWTH_STEPS = 700
 GROWTH_OVERRIDES = ["--init_type=monocular_depth", "--mdi.predictor=stub", "--mdi.use_cache=false",
-                    "--mdi.subsample_factor=40"]
+                    "--mdi.subsample_factor=40", "--strategy.refine_start_iter=100",
+                    "--strategy.grow_grad2d=0.00005"]
 # The oracle depth is the expected depth of the ground-truth render where
 # alpha >= ORACLE_MIN_ALPHA (NaN elsewhere): at lower alpha it blends the
 # surface with what lies behind it, and the dense surface depth is out of
@@ -3536,11 +3592,13 @@ def garden_path(dev, card, n_cams, width, height, n_fg, n_bg, n_sfm, steps, capa
 # random subset with a full buffer: the default preset's refines find no
 # free slot until pruning frees some; the mcmc preset (cap_max = capacity) grows by nothing and relocates
 # onto the full buffer. The argv names no capacity, cap_max, pair table or
-# refine schedule. Widths are garden's; the depth is cut to 1,200 steps
-# (refines or relocations at 600-1,100; the phase holds that one of them
-# grants a slot that pruning freed, or moves a dead gaussian).
+# refine schedule. Widths are garden's; the depth is cut to 800 steps
+# (refines or relocations at 600 and 700; the phase holds that one of them
+# grants a slot that pruning freed, or moves a dead gaussian: a
+# 1,200-step run granted 37,822 freed slots at 700 and moved 1 and 9 dead
+# gaussians at 600 and 700, NVIDIA H100 80GB HBM3, 700 W).
 GARDEN_FULL = dict(n_cams=185, width=1296, height=840, n_fg=150_000, n_bg=850_000, n_sfm=100_000)
-DEFAULT_STEPS = 1200
+DEFAULT_STEPS = 800
 # The least rise of eval PSNR over the initial gaussians' in each run (dB).
 PSNR_GAIN_DB = 3.0
 # The card's eval metrics against the same formulas on CPU copies of the
@@ -3958,15 +4016,19 @@ def default_capacity(dev, card, garden, steps):
 # first that many of the scene's (None: all 185), cut so that the arm keeps
 # within its share of the phase. Under SLIC an image takes ~1.3 s, ~1.1 s
 # of it SLIC and the region merge on the host (NVIDIA H100 80GB HBM3,
-# 700 W): 161 images would be 3.5 minutes.
+# 700 W): 161 images would be 3.5 minutes. MSAC, the RBF scale map, the
+# adaptive stride and the training run's Delaunay arm run on ARM_CAMERAS
+# (71 training images), so that the script with phase 13 keeps within its
+# time; LOF with the merges keeps every camera.
 SLIC_CAMERAS = 12
+ARM_CAMERAS = 81
 LOF_NATIVE = ["--mdi.postprocess.lof_outlier_removal=true", "--mdi.postprocess.merge_subsample=true"]
 INTERPOLATE = ["--mdi.alignment.method=interpolate"]
 MDI_ARMS = (
-    ("a", "msac", ["--mdi.alignment.method=msac"], None),
-    ("c", "interpolate rbf", INTERPOLATE + ["--mdi.alignment.interp.method=rbf"], None),
+    ("a", "msac", ["--mdi.alignment.method=msac"], ARM_CAMERAS),
+    ("c", "interpolate rbf", INTERPOLATE + ["--mdi.alignment.interp.method=rbf"], ARM_CAMERAS),
     ("d", "slic", ["--mdi.alignment.segmentation.method=slic"], SLIC_CAMERAS),
-    ("e", "adaptive", ["--mdi.subsampling.method=adaptive"], None),
+    ("e", "adaptive", ["--mdi.subsampling.method=adaptive"], ARM_CAMERAS),
     ("f", "lof native", LOF_NATIVE, None),
 )
 TRAIN_ARM = ("b", "interpolate (the training run's init, with LOF and the native merge)", INTERPOLATE + LOF_NATIVE)
@@ -4478,13 +4540,591 @@ def mdi_configurations(dev, card, garden):
             release()
         failures += pixel_knn_against_sort(card, parser, dev)
         failures += scale_outliers_at_scale(card, dev)
-        failures += mdi_training(dev, card, data_dir, parser, depths, want_scale, os.path.join(tmp, "train"),
-                                 MDI_TRAIN_STEPS)
+        failures += mdi_training(dev, card, data_dir, first_cameras(parser, ARM_CAMERAS), depths, want_scale,
+                                 os.path.join(tmp, "train"), MDI_TRAIN_STEPS)
         release()
         failures += card_against_cpu(dev, card, data_dir, parser, depths, os.path.join(tmp, "cpu"))
     log(f"  [{card}] phase 12 took {time.perf_counter() - t_phase:.1f} s")
     if failures:
         raise RuntimeError("phase 12: " + "; ".join(failures))
+
+
+# ----------------------------------------------------------------- phase 13
+# The depth cache and the Runner on a mesh at garden scale, on phase 11's
+# scene (GARDEN_FULL: 161 training images at 1296x840, 100,000 SfM points).
+# (a) The default predictor (Metric3D large, random weights) writes the
+# cache in a cold init, and a warm init reads it back with a predictor that
+# raises. (b) Two gloo ranks on cuda:0 run the default preset at its own
+# capacity of 1,000,000 on a 1x2 gaussian-sharded mesh from a cache of the
+# stub's predictions, beside a one-rank Runner from the same cache.
+# (a) runs on the first CACHE_CAMERAS cameras (36 training images), so that
+# the script keeps within its time: 161 images took 50.1 s cold and 13.8 s
+# warm (NVIDIA H100 80GB HBM3, 700 W); (b) keeps all 161.
+CACHE_CAMERAS = 41
+# Every entry of the cache, per image: depth [H, W] float32, mask [H, W]
+# bool, normal [H, W, 3] float32 (the JAX layout, mdi/init.py); the stub
+# writes no normal.
+CACHE_KEYS = {"depth": ("<f4", ()), "mask": ("|b1", ()), "normal": ("<f4", (3,))}
+# (b): MESH_STEPS steps, refines at 100 and 200 (refine_start_iter 50).
+MESH_STEPS = 300
+MESH_OVERRIDES = ["--strategy.refine_start_iter=50"]
+# (b)'s loss against the one-rank run: over the first CURVE_STEPS steps
+# within MESH_CURVE_RTOL, to step 99 within MESH_PRE_REFINE_RTOL. Phase 9
+# (c)'s CURVE_RTOL and PRE_REFINE_RTOL are too tight at 1M gaussians and
+# 1296x840: K2 sums each gaussian's gradient with float atomics, so two
+# one-rank runs of this config from the same state part by 1.281e-4 and
+# 2.726e-4 over steps 0-11, 1.786e-3 and 3.413e-3 over 0-99, in two calls
+# of chip_measure.py curve-witness (0 at steps 0 and 1, then Adam turns
+# the rounding of near-zero gradients into whole steps). The 1x2 mesh
+# against the one-rank run in three runs: 1.616e-4 and 9.180e-3, 5.544e-5
+# and 1.116e-3, 1.240e-4 and 9.435e-3, with alive counts after the refines
+# within 67 of a million and eval PSNR within 0.001 dB (NVIDIA H100 80GB
+# HBM3, 700 W). Each tolerance is 2.4x the largest of these gaps, as
+# PRE_REFINE_RTOL is.
+MESH_CURVE_RTOL = 6.5e-4
+MESH_PRE_REFINE_RTOL = 2.3e-2
+# The mesh run's eval PSNR against the one-rank run's, in dB (fixed before
+# the first run, PERF.md §6: phase 9 (c)'s runs came within 0.006 dB at 200
+# steps; refines on two runs whose gradients differ by float atomics may
+# grant other slots).
+MESH_PSNR_ATOL = 0.1
+
+
+class NoPredictor:
+    """A depth predictor that must not be asked: every image is cached."""
+
+    name = "stub"
+
+    def predict_depth_batch(self, images, intrinsics):
+        raise RuntimeError("phase 13: a depth prediction was asked for an image the cache holds")
+
+
+def cache_files(cache_dir):
+    """Every file under cache_dir, sorted."""
+    return sorted(os.path.join(d, f) for d, _, fs in os.walk(cache_dir) for f in fs)
+
+
+def entry_layout(path):
+    """{key: (dtype, shape)} of one cache entry, read from its members'
+    headers (the arrays are not read)."""
+    import zipfile
+
+    out = {}
+    with zipfile.ZipFile(path) as z:
+        for name in z.namelist():
+            with z.open(name) as f:
+                version = np.lib.format.read_magic(f)
+                read = np.lib.format.read_array_header_1_0 if version == (1, 0) else np.lib.format.read_array_header_2_0
+                shape, _, dtype = read(f)
+            out[name[:-4] if name.endswith(".npy") else name] = (dtype.str, tuple(shape))
+    return out
+
+
+def check_cache(cache_dir, parser, failures, tag, keys):
+    """The cache holds one .npz per training image in the JAX layout at the
+    image's size with exactly `keys`, and nothing else (no *.tmp). Returns
+    (entries, bytes)."""
+    files = cache_files(cache_dir)
+    train = [parser.images[int(i)] for i in parser.split_indices("train")]
+    want = {im.name.replace("/", "_") + ".npz" for im in train}
+    if {os.path.basename(p) for p in files} != want or len(files) != len(train):
+        failures.append(f"{tag}: the cache holds {len(files)} files, not one .npz per training image ({len(train)})"
+                        f"; left-overs {[p for p in files if not p.endswith('.npz')][:3]}")
+    h, w = train[0].height, train[0].width
+    good = {k: (CACHE_KEYS[k][0], (h, w) + CACHE_KEYS[k][1]) for k in keys}
+    for p in files:
+        layout = entry_layout(p)
+        if layout != good:
+            failures.append(f"{tag}: entry {os.path.basename(p)} holds {layout}, not {good}")
+            break
+    return len(files), sum(os.path.getsize(p) for p in files)
+
+
+def init_report(card, tag, per, secs, rss, peak, pts, net_seconds=None):
+    """One line of (a): seconds per image by stage, the init's seconds."""
+    n = len(per)
+    stage = lambda k: sum(r["stages"].get(k, 0.0) for r in per) / max(n, 1)
+    rest = sum(r["seconds"] - sum(v for k, v in r["stages"].items() if k != "predict") for r in per) / max(n, 1)
+    read = (f"predict {stage('predict'):.4f} (the network {net_seconds / n:.4f}, the cache write "
+            f"{stage('predict') - net_seconds / n:.4f})" if net_seconds is not None
+            else f"the cache read {stage('predict'):.4f}")
+    log(f"  [{card}] (a) {tag}: {n} images in {secs:.3f} s ({secs / max(n, 1):.4f} s per image): {read}, "
+        f"align_and_unproject {stage('align_and_unproject'):.4f}, host rest {rest:.4f}; {len(pts)} points; card "
+        f"peak {peak:.3f} GiB; host RSS growth {rss.growth:.3f} GiB (getrusage peak {rss.maxrss_growth:.3f} GiB)")
+
+
+def depth_cache_default_predictor(dev, card, garden, tmp):
+    """Phase 13 (a): parse_cli with the default predictor and backbone
+    (Metric3D large, random weights) and the cache in tmp; a cold init that
+    predicts and writes every entry, a warm init that reads them all."""
+    import shutil
+
+    import torch
+    from gs_init_tpu_torch import trainer
+    from gs_init_tpu_torch.config import parse_cli
+    from gs_init_tpu_torch.mdi.init import pts_and_rgb_from_monocular_depth
+    from gs_init_tpu_torch.mdi.predictors.interface import pick_model
+
+    now = time.perf_counter
+    failures = []
+    data_dir, parser, _, _ = garden
+    parser = first_cameras(parser, CACHE_CAMERAS)
+    cache = os.path.join(tmp, "depth_cache")
+    cfg = parse_cli(["default", f"--data_dir={data_dir}", "--data_factor=1", f"--result_dir={os.path.join(tmp, 'a')}",
+                     "--init_type=monocular_depth", "--mdi.allow_random_weights=true", f"--mdi.cache_dir={cache}"],
+                    trainer.build_presets())
+    cfg.adjust_steps()
+    m = cfg.mdi
+    if (m.predictor, m.backbone, m.use_cache) != ("metric3d", "vitl", True):
+        failures.append(f"(a): parse_cli gave predictor {m.predictor}, backbone {m.backbone}, cache {m.use_cache}")
+    free = shutil.disk_usage(tmp).free / 2**30
+    t0 = now()
+    model = TimedPredictor(pick_model(cfg, device=dev))
+    t_build = now() - t0
+    log(f"  [{card}] (a) {m.predictor} {m.backbone} (random weights) built in {t_build:.3f} s; batch "
+        f"{m.predict_batch_size}; cache {cache} ({free:.1f} GiB free there)")
+    def init(tag, predictor):
+        release()
+        torch.cuda.reset_peak_memory_stats(dev)
+        per, summary = [], {}
+        with HostRss() as rss:
+            t0 = now()
+            pts, rgb = pts_and_rgb_from_monocular_depth(cfg, parser, model=predictor, device=dev, per_image=per,
+                                                        summary=summary)
+            secs = now() - t0
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        init_report(card, tag, per, secs, rss, peak, pts, getattr(predictor, "seconds", None))
+        if not (len(pts) > len(parser.points) and np.isfinite(pts).all() and np.isfinite(rgb).all()):
+            failures.append(f"(a) {tag}: no usable cloud ({len(pts)} points)")
+        return dict(pts=pts, rgb=rgb, fits=[(r["name"], r["scale"], r["shift"]) for r in per])
+
+    cold = init("cold", model)
+    del model  # the network's weights leave the card before the warm init
+    n_files, n_bytes = check_cache(cache, parser, failures, "(a)", tuple(CACHE_KEYS))
+    log(f"  [{card}] (a) the cache: {n_files} entries, {n_bytes} bytes ({n_bytes / max(n_files, 1) / 1e6:.2f} MB an "
+        f"entry) in {cache}")
+    warm = init("warm", NoPredictor())
+    same = (np.array_equal(cold["pts"], warm["pts"]) and np.array_equal(cold["rgb"], warm["rgb"])
+            and cold["fits"] == warm["fits"])
+    log(f"  [{card}] (a) the warm cloud against the cold one: {'equal to the bit' if same else 'DIFFERENT'} "
+        f"(points, colours, {len(cold['fits'])} per-image scales and shifts)")
+    if not same:
+        failures.append("(a): the warm init's cloud differs from the cold one")
+    if check_cache(cache, parser, failures, "(a) after the warm init", tuple(CACHE_KEYS)) != (n_files, n_bytes):
+        failures.append("(a): the warm init changed the cache")
+    shutil.rmtree(cache)
+    return failures
+
+
+def write_stub_cache(cache_dir, data_dir, parser, depths):
+    """Phase 11's stub predictions (depth_stub over the surface depths), one
+    JAX-layout entry per training image under the stub predictor's key."""
+    import types
+
+    from gs_init_tpu_torch.mdi.init import _cache_path
+
+    cfg = types.SimpleNamespace(data_dir=data_dir, mdi=types.SimpleNamespace(cache_dir=cache_dir, predictor="stub"))
+    stub = depth_stub(depths)
+    for i in parser.split_indices("train"):
+        out = stub.predict_depth(np.empty((0, 0, 3)), None)
+        with open(_cache_path(cfg, parser.images[int(i)].name), "wb") as f:
+            np.savez(f, depth=out.depth, mask=out.mask)
+
+
+class SetupTimers:
+    """Times a Runner's set-up: the mdi init (its per-image entries), the
+    cloud's broadcast (on a rank other than 0 it waits there for rank 0's
+    init), the subset and the kNN scale init."""
+
+    def __enter__(self):
+        import torch
+        import torch.distributed as dist
+        from gs_init_tpu_torch.engine import params as pparams
+        from gs_init_tpu_torch.engine import runner as prunner
+
+        sync = torch.cuda.synchronize
+        now = time.perf_counter
+        self.per, self.init, self.bcast, self.knn, self.sub, self.points = [], 0.0, 0.0, 0.0, 0.0, 0
+        real = dict(mdi=prunner.pts_and_rgb_from_monocular_depth, knn=pparams.mean_knn_dist,
+                    init=prunner.init_from_points, bcast=dist.broadcast)
+        self.undo = [(prunner, "pts_and_rgb_from_monocular_depth", real["mdi"]),
+                     (pparams, "mean_knn_dist", real["knn"]), (prunner, "init_from_points", real["init"]),
+                     (dist, "broadcast", real["bcast"])]
+
+        def mdi(*a, **kw):
+            t0 = now()
+            out = real["mdi"](*a, per_image=self.per, **kw)
+            self.init += now() - t0
+            self.points = len(out[0])
+            return out
+
+        def timed(key, fn):
+            def f(*a, **kw):
+                sync()
+                t0 = now()
+                out = fn(*a, **kw)
+                sync()
+                setattr(self, key, getattr(self, key) + now() - t0)
+                return out
+            return f
+
+        prunner.pts_and_rgb_from_monocular_depth = mdi
+        pparams.mean_knn_dist = timed("knn", real["knn"])
+        prunner.init_from_points = timed("sub", real["init"])
+        dist.broadcast = timed("bcast", real["bcast"])
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, fn in self.undo:
+            setattr(obj, name, fn)
+        self.sub -= self.knn  # init_from_points holds the kNN
+        return False
+
+
+def whole_digest(runner):
+    """sha1 of the whole state's alive mask and means (gathered under a
+    mesh: a collective)."""
+    import hashlib
+
+    g = runner.full_gstate()
+    h = hashlib.sha1(g.alive.cpu().numpy().tobytes())
+    h.update(g.params.means.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def cached_run(argv, dev, sharded):
+    """Phase 13 (b)'s run on a mesh rank or on one device: parse_cli ->
+    Runner(cfg, mdi_model=NoPredictor()) from the stub's cache -> eval of
+    the initial gaussians -> train(), then (sharded) ckpt.save_sharded.
+    Hooks record each step's loss, the host clock every 100 steps, each
+    step's CUDA-event marks (a sharded step has them), each refine with the
+    gather and slice of _whole_state and its grants, each retune decision,
+    the eval renders and the checkpoints. Returns the record and the
+    Runner."""
+    import torch
+    from gs_init_tpu_torch import kernels, trainer
+    from gs_init_tpu_torch.config import parse_cli
+    from gs_init_tpu_torch.engine import ckpt
+    from gs_init_tpu_torch.engine import runner as prunner
+    from gs_init_tpu_torch.engine.strategy import default as dstrat
+    from gs_init_tpu_torch.parallel import shard as pshard
+
+    now = time.perf_counter
+    sync = lambda: torch.cuda.synchronize(dev)
+    cfg = parse_cli(argv, trainer.build_presets())
+    cfg.adjust_steps()
+    steps = cfg.max_steps
+    torch.cuda.reset_peak_memory_stats(dev)
+    with SetupTimers() as st:
+        t0 = now()
+        runner = prunner.Runner(cfg, mdi_model=NoPredictor(), device=dev)
+        sync()
+        t_setup = now() - t0
+    setup_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    rec = dict(setup=dict(total=t_setup, init=st.init, broadcast=st.bcast, subset=st.sub, knn=st.knn, peak=setup_peak),
+               read=len(st.per), read_s=sum(r["stages"]["predict"] for r in st.per), alive0=runner.num_gaussians(),
+               digest=whole_digest(runner), n_val=len(runner.valset), mesh=None if runner.mesh is None else
+               runner.mesh.shape, points=st.points, loss=[], mark={}, events=[], refine=[], retune=[], renders=0,
+               eval={})
+    patches = []
+
+    def patch(obj, name, fn):
+        patches.append((obj, name, getattr(obj, name)))
+        setattr(obj, name, fn)
+
+    real_rast, real_alloc, real_refine = prunner.rasterize, dstrat._alloc_slots, dstrat.refine
+    real_gather, real_local = pshard.global_state, pshard.local_state
+    real_iter, real_step, real_whole = runner.train_iteration, runner.step_fn, runner._whole_state
+    real_retune, real_save, real_eval = runner._maybe_retune_capacity, runner.save, runner.eval
+    grants, moves = [], []
+
+    def counted_rast(*a, **kw):
+        rec["renders"] += 1
+        return real_rast(*a, **kw)
+
+    def spy_alloc(alive, cand):
+        dst, ok = real_alloc(alive, cand)
+        grants.append((int(cand.sum()), int((~alive).sum()), int(ok.sum())))
+        return dst, ok
+
+    def timed_refine(*a, **kw):
+        out = real_refine(*a, **kw)
+        rec["refine"].append(dict(step=a[-1], alive=int(out[0].alive.sum()), **dict(zip(("cand", "free", "granted"),
+                                                                                      grants[-1])), **out[3]))
+        return out
+
+    def timed_move(fn, key):
+        def f(*a, **kw):
+            sync()
+            t0 = now()
+            out = fn(*a, **kw)
+            sync()
+            moves.append((key, now() - t0))
+            return out
+        return f
+
+    def whole(fn):
+        moves.clear()
+        pshard.global_state, pshard.local_state = timed_move(real_gather, "gather"), timed_move(real_local, "slice")
+        try:
+            sync()
+            t0 = now()
+            real_whole(fn)
+            sync()
+            ms = (now() - t0) * 1e3
+        finally:
+            pshard.global_state, pshard.local_state = real_gather, real_local
+        parts = {k: sum(s for kk, s in moves if kk == k) * 1e3 for k in ("gather", "slice")}
+        rec["refine"][-1].update(ms=ms, **{f"{k}_ms": v for k, v in parts.items()})
+
+    def hooked(step):
+        if step % 100 == 0:
+            sync()
+            rec["mark"][step] = now()
+        m = real_iter(step)
+        rec["loss"].append(m["loss"].detach())
+        if step == steps - 1:
+            sync()
+            rec["mark"][steps] = now()
+        return m
+
+    def marked(*a, **kw):
+        ev = {}
+
+        def mark(k):
+            ev[k] = torch.cuda.Event(enable_timing=True)
+            ev[k].record()
+
+        mark("start")
+        out = real_step(*a, mark=mark, **kw)
+        mark("end")
+        rec["events"].append(ev)
+        return out
+
+    def counted_retune(metrics, step, **kw):
+        before = cfg.pair_capacity
+        real_retune(metrics, step, **kw)
+        rec["retune"].append((step, before, cfg.pair_capacity))
+
+    def timed_eval(step, *a, **kw):
+        t0 = now()
+        out = real_eval(step, *a, **kw)
+        rec["eval"][step] = dict(out, secs=now() - t0)
+        return out
+
+    def timed_save(step):
+        sync()
+        t0 = now()
+        path = real_save(step)
+        rec["save"] = dict(path=path, secs=now() - t0, bytes=os.path.getsize(path) if runner.is_main else 0)
+        return path
+
+    # The Runner is dropped after this run: its hooks stay on it.
+    runner.eval, runner.train_iteration, runner._whole_state = timed_eval, hooked, whole
+    runner._maybe_retune_capacity, runner.save = counted_retune, timed_save
+    if sharded:
+        runner.step_fn = marked
+    try:
+        patch(prunner, "rasterize", counted_rast)
+        runner.eval(0)
+        rec["renders"] = 0
+        patch(dstrat, "_alloc_slots", spy_alloc)
+        patch(dstrat, "refine", timed_refine)
+        kernels.reset_launch_counts()
+        t0 = now()
+        stats = runner.train()
+        sync()
+        rec["train_s"] = now() - t0
+        rec["launches"] = {k: kernels.LAUNCHES[k] for k in ("composite_fwd", "composite_bwd", "scan_probe")}
+    finally:
+        for obj, name, fn in reversed(patches):
+            setattr(obj, name, fn)
+    rec.update(psnr0=rec["eval"][0]["psnr"], psnr=rec["eval"][steps]["psnr"], num_GS=stats["num_GS"],
+               pair_capacity=cfg.pair_capacity, peak=torch.cuda.max_memory_allocated(dev) / 2**30,
+               loss=[float(x) for x in torch.stack(rec["loss"]).cpu()])
+    marks = sorted(rec["mark"])
+    rec["segments"] = [(a, b, (b - a) / (rec["mark"][b] - rec["mark"][a])) for a, b in zip(marks, marks[1:])]
+    if sharded:
+        names = list(rec["events"][0])
+        phase = lambda ev, k: ev[names[names.index(k) - 1]].elapsed_time(ev[k])
+        rec["step_ms"] = [ev["start"].elapsed_time(ev["end"]) for ev in rec["events"]]
+        rec["gather_ms"] = [phase(ev, "gather") for ev in rec["events"]]
+        rec["backward_ms"] = [phase(ev, "backward") for ev in rec["events"]]
+        rec["reduce_ms"] = [phase(ev, "reduce") for ev in rec["events"]]
+        sync()
+        t0 = now()
+        rec["sharded"] = ckpt.save_sharded(runner, steps)
+        rec["sharded_s"] = now() - t0
+        rec["sharded_bytes"] = sum(os.path.getsize(p) for p in cache_files(rec["sharded"]))
+    del rec["events"]
+    return rec, runner
+
+
+def curve_gaps(loss, ref):
+    """|loss - ref| / |ref| at each step."""
+    return [abs(a - b) / abs(b) for a, b in zip(loss, ref)]
+
+
+def mesh_rank(rank, world, port, argv, device, q):
+    """Phase 13 (b) worker: one rank of a gloo group on `device` (the ranks
+    share cuda:0) running cached_run on the mesh that argv names."""
+    try:
+        import torch
+        import torch.distributed as dist
+
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world, rank=rank)
+        with HostRss() as rss:
+            rec, runner = cached_run(argv, dev, sharded=True)
+            del runner
+        rec.update(rss=rss.growth, rss_peak=rss.peak / 2**30)
+        dist.destroy_process_group()
+        q.put((rank, "ok", rec))
+    except BaseException:
+        import traceback
+
+        q.put((rank, "error", traceback.format_exc()))
+
+
+def rank_report(card, tag, r):
+    """(b)'s lines for one run (a mesh rank or the one-rank run)."""
+    s = r["setup"]
+    med = lambda k: f"{np.median(r[k]):.3f} (mean {np.mean(r[k]):.3f})"
+    log(f"  [{card}] (b) {tag}: set-up {s['total']:.3f} s: init {s['init']:.3f} s ({r['read']} cache entries read in "
+        f"{r['read_s']:.3f} s, {r['points']} points), broadcast {s['broadcast']:.3f} s, subset {s['subset']:.3f} s, "
+        f"kNN {s['knn']:.3f} s; peak {s['peak']:.3f} GiB; alive {r['alive0']}; eval of the initial gaussians "
+        f"{r['eval'][0]['secs']:.3f} s")
+    log(f"      steps/s by 100-step segment (refines inside): "
+        + ", ".join(f"[{a}, {b}) {v:.3f}" for a, b, v in r["segments"]) + f"; {MESH_STEPS} steps and eval in "
+        f"{r['train_s']:.3f} s")
+    if "step_ms" in r:
+        log(f"      ms per step (CUDA events, median over {len(r['step_ms'])} steps): step {med('step_ms')}, "
+            f"all-gather {med('gather_ms')}, backward (its reduce-scatter inside) {med('backward_ms')}, gradient "
+            f"all-reduce {med('reduce_ms')}")
+    log("      refines (step: ms, gather and slice of the state ms; candidates, free, granted; dup/split/pruned; "
+        "alive after): " + "; ".join(
+            f"{x['step']}: {x['ms']:.3f}, {x.get('gather_ms', 0.0):.3f} + {x.get('slice_ms', 0.0):.3f}; {x['cand']}, "
+            f"{x['free']}, {x['granted']}; {x['n_dup']}/{x['n_split']}/{x['n_pruned']}; {x['alive']}"
+            for x in r["refine"]))
+    log(f"      retunes (step, before, after): {r['retune']}; eval PSNR {r['psnr0']:.4f} -> {r['psnr']:.4f} "
+        f"({r['eval'][MESH_STEPS]['secs']:.3f} s, {r['n_val']} images); launches {json.dumps(r['launches'])}, "
+        f"renders {r['renders']}; npz {r['save']['bytes']} bytes in {r['save']['secs']:.3f} s"
+        + (f"; shards {r['sharded_bytes']} bytes in {r['sharded_s']:.3f} s" if "sharded" in r else "")
+        + f"; card peak {r['peak']:.3f} GiB" + (f"; host RSS growth {r['rss']:.3f} GiB (peak {r['rss_peak']:.3f} "
+                                                  f"GiB)" if "rss" in r else ""))
+
+
+def mesh_at_capacity(dev, card, data_dir, parser, depths, tmp):
+    """Phase 13 (b): the stub's cache, two gloo ranks on a 1x2 mesh at the
+    default capacity beside the one-rank Runner, the sharded restore and
+    the eval-only restart of rank 0's npz."""
+    import torch
+    from gs_init_tpu_torch import trainer
+    from gs_init_tpu_torch.engine import ckpt
+
+    now = time.perf_counter
+    failures = []
+    cache = os.path.join(tmp, "stub_cache")
+    t0 = now()
+    write_stub_cache(cache, data_dir, parser, depths)
+    n_files, n_bytes = check_cache(cache, parser, failures, "(b) the stub's cache", ("depth", "mask"))
+    log(f"  [{card}] (b) the stub's cache: {n_files} entries, {n_bytes} bytes, written in {now() - t0:.3f} s")
+    common = ["default", f"--data_dir={data_dir}", "--data_factor=1", f"--max_steps={MESH_STEPS}",
+              f"--eval_steps=[{MESH_STEPS}]", f"--save_steps=[{MESH_STEPS}]", "--init_type=monocular_depth",
+              "--mdi.predictor=stub", f"--mdi.cache_dir={cache}", *MESH_OVERRIDES]
+    t0 = now()
+    ranks = spawn_ranks(mesh_rank, 2, common + [f"--result_dir={os.path.join(tmp, 'mesh')}", "--mesh=1x2"], str(dev))
+    log(f"  [{card}] (b) two ranks on cuda:0 over gloo, mesh 1x2 (shared-card figures, not scaling): "
+        f"{now() - t0:.1f} s with start-up")
+    release()
+    one, r1 = cached_run(common + [f"--result_dir={os.path.join(tmp, 'one')}", "--mesh=off"], dev, sharded=False)
+    for i, r in enumerate(ranks):
+        rank_report(card, f"rank {i}", r)
+    rank_report(card, "one rank", one)
+    r0 = ranks[0]
+    n_train = len(parser.split_indices("train"))
+    gaps = curve_gaps(r0["loss"], one["loss"])
+    gap, gap_before = max(gaps[:CURVE_STEPS]), max(gaps[:100])
+    ranks_gap = max(abs(a - b) for a, b in zip(ranks[0]["loss"], ranks[1]["loss"]))
+    key = lambda r: [(x["step"], x["alive"], x["cand"], x["free"], x["granted"]) for x in r["refine"]]
+    log(f"  [{card}] (b) loss against the one-rank run: max rel gap over steps 0-{CURVE_STEPS - 1} {gap:.3e} (tol "
+        f"{MESH_CURVE_RTOL:g}), over steps 0-99 {gap_before:.3e} (tol {MESH_PRE_REFINE_RTOL:g}), at steps 0, 1, 2, 5, 11, 25, "
+        f"50, 99 {' '.join(f'{gaps[k]:.1e}' for k in (0, 1, 2, 5, 11, 25, 50, 99))}; the ranks' losses apart by at "
+        f"most {ranks_gap:.3e}; initial state: {'the same' if r0['digest'] == one['digest'] else 'DIFFERENT'} on one "
+        f"device; refines (step, alive, candidates, free, granted): ranks {key(ranks[0])} and {key(ranks[1])}, one "
+        f"rank {key(one)}; eval PSNR {r0['psnr']:.4f}, one rank {one['psnr']:.4f} (|diff| "
+        f"{abs(r0['psnr'] - one['psnr']):.4f}, tol {MESH_PSNR_ATOL:g})")
+    retune_steps = sorted({s for s, _, _ in r0["retune"] if s % 100 == 0})
+    failures += [f"(b): {what}" for bad, what in (
+        (r0["read"] != n_train or ranks[1]["read"] != 0, f"cache entries read {[r['read'] for r in ranks]}, not "
+                                                         f"[{n_train}, 0]"),
+        (any(r["alive0"] != 1_000_000 for r in ranks), f"alive after init {[r['alive0'] for r in ranks]}"),
+        (r0["points"] <= 1_000_000, f"a cloud of {r0['points']} points does not exceed the capacity"),
+        (ranks[1]["digest"] != r0["digest"], "the ranks' initial states differ"),
+        (r0["digest"] != one["digest"], "the mesh's initial state differs from the one-rank Runner's"),
+        (gap > MESH_CURVE_RTOL or gap_before > MESH_PRE_REFINE_RTOL, "the loss curve left the one-rank run's"),
+        (not all(np.isfinite(r["loss"]).all() for r in ranks), "a non-finite loss"),
+        ([x["step"] for x in r0["refine"]] != [100, 200], f"refines at {[x['step'] for x in r0['refine']]}"),
+        (key(ranks[0]) != key(ranks[1]), "the ranks' refines differ"),
+        (retune_steps != [0, 100, 200] or ranks[1]["retune"] != r0["retune"]
+         or ranks[1]["pair_capacity"] != r0["pair_capacity"], f"retunes {r0['retune']}, {ranks[1]['retune']}"),
+        (not r0["psnr"] > r0["psnr0"], "eval PSNR did not rise"),
+        (abs(r0["psnr"] - one["psnr"]) > MESH_PSNR_ATOL, "eval PSNR away from the one-rank run's"),
+        (any(r["psnr"] != r0["psnr"] for r in ranks), "the ranks' eval PSNRs differ"),
+    ) if bad]
+    for i, r in enumerate(ranks):
+        want = dict(composite_fwd=MESH_STEPS + r["renders"], composite_bwd=MESH_STEPS, scan_probe=1)
+        if r["launches"] != want or r["renders"] < r["n_val"]:
+            failures.append(f"(b): rank {i} launched {r['launches']}, not {want} ({r['renders']} eval renders)")
+    release()
+
+    # The sharded checkpoint onto one device (the one-rank run's Runner)
+    # against rank 0's npz (the gathered state); then trainer.main --ckpt
+    # on that npz.
+    npz = r0["save"]["path"]
+    t1 = now()
+    at = ckpt.load_sharded(r1, r0["sharded"])
+    t2 = now()
+    sharded = {k: x.clone() for k, (x, _) in runner_arrays(r1, r1).items()}
+    t3 = now()
+    r1.load(npz)
+    t4 = now()
+    mism = [k for k, (x, _) in runner_arrays(r1, r1).items() if not torch.equal(x, sharded[k])]
+    del r1, sharded
+    release()
+    t5 = now()
+    with open(os.devnull, "w") as quiet, contextlib.redirect_stdout(quiet):
+        trainer.main(["default", f"--data_dir={data_dir}", "--data_factor=1", "--mesh=off",
+                      f"--result_dir={os.path.join(tmp, 'restart')}", f"--ckpt=[{npz}]"], device=dev)
+    t_restart = now() - t5
+    with open(os.path.join(tmp, "restart", "stats", f"val_step{MESH_STEPS}.json")) as f:
+        psnr_re = json.load(f)["psnr"]
+    log(f"  [{card}] (b) the sharded checkpoint (step {at}) onto the one-rank run's Runner in {t2 - t1:.3f} s: "
+        f"{len(mism)} arrays differ from rank 0's npz (loaded in {t4 - t3:.3f} s); eval-only restart "
+        f"(trainer.main --ckpt: set-up, load, eval, trajectory) {t_restart:.3f} s, PSNR {psnr_re:.6f} (|diff| "
+        f"{abs(psnr_re - r0['psnr']):.2e}, tol {RESTART_PSNR_ATOL:g})")
+    if mism or at != MESH_STEPS:
+        failures.append(f"(b): the sharded checkpoint restored {mism} unequal (step {at})")
+    if abs(psnr_re - r0["psnr"]) > RESTART_PSNR_ATOL:
+        failures.append("(b): the eval-only restart did not reproduce the mesh run's PSNR")
+    return failures
+
+
+def cache_and_mesh(dev, card, garden):
+    """Phase 13: the depth cache with the default predictor, then the
+    Runner on a two-rank mesh at the default capacity, on phase 11's scene."""
+    t_phase = time.perf_counter()
+    data_dir, parser, depths, _ = garden
+    release()
+    with tempfile.TemporaryDirectory() as tmp:
+        failures = depth_cache_default_predictor(dev, card, garden, tmp)
+        release()
+        failures += mesh_at_capacity(dev, card, data_dir, parser, depths, tmp)
+    log(f"  [{card}] phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        raise RuntimeError("phase 13: " + "; ".join(failures))
 
 
 # --------------------------------------------------------------------- main
@@ -4594,6 +5234,9 @@ def main():
         default_capacity(dev, card, garden, DEFAULT_STEPS)
         log(f"phase 12: the mdi configurations at garden scale ({time.perf_counter() - t_start:.1f} s)")
         mdi_configurations(dev, card, garden)
+        log(f"phase 13: the depth cache with the default predictor, and the Runner on a two-rank mesh at the "
+            f"default capacity ({time.perf_counter() - t_start:.1f} s)")
+        cache_and_mesh(dev, card, garden)
         del garden
 
     log(f"total {time.perf_counter() - t_start:.3f} s")

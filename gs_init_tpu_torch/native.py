@@ -1,5 +1,6 @@
-"""ctypes binding of the native KD-split merge subsampler
-(``native/subsampling.cpp``, a plain C interface) — the port's own.
+"""ctypes bindings of the native KD-split merge subsampler and the
+minimal-extents pass (``native/subsampling.cpp``, a plain C interface) —
+the port's own copy of ``gs_init_tpu/native/subsampling.py``.
 
 At first use the source is compiled with ``g++ -O3 -std=c++17 -fPIC
 -shared -pthread`` into ``gs_init_tpu_torch/_build/`` (git-ignored), named
@@ -58,12 +59,45 @@ def _load():
         if _LIB is None:
             lib = ctypes.CDLL(str(build()))
             f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
-            lib.mdi_subsample_pointcloud.restype = ctypes.c_int64
-            lib.mdi_subsample_pointcloud.argtypes = [
-                f32p, f32p, f32p, ctypes.c_int64, ctypes.c_float, ctypes.c_float, f32p, f32p,
+            i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+            lib.mdi_subsample_pointcloud_ex.restype = ctypes.c_int64
+            lib.mdi_subsample_pointcloud_ex.argtypes = [
+                f32p, f32p, f32p, ctypes.c_int64, ctypes.c_float, ctypes.c_float, ctypes.c_int, f32p, f32p,
+            ]
+            lib.mdi_compute_min_extents.restype = None
+            lib.mdi_compute_min_extents.argtypes = [
+                f32p, ctypes.c_int64, f32p, f32p, i32p, i32p, ctypes.c_int64, f32p,
             ]
             _LIB = lib
         return _LIB
+
+
+# The codes of mdi_subsample_pointcloud_ex's split_strategy (native/subsampling.cpp).
+SPLIT_STRATEGIES = {"spatial_median": 0, "equal_num_pts": 1, "max_gap": 2}
+
+
+def compute_min_extents(
+    positions: np.ndarray,  # [N, 3]
+    viewmats: np.ndarray,  # [C, 4, 4] world -> camera
+    Ks: np.ndarray,  # [C, 3, 3]
+    widths,
+    heights,
+) -> np.ndarray:
+    """Each point's minimal world-space extent, 2 z / min(fx, fy) over the
+    cameras that see it (in front, inside the image); -1 where none does."""
+    lib = _load()
+    positions = np.ascontiguousarray(positions, np.float32)
+    if positions.ndim != 2 or positions.shape[1] != 3:
+        raise ValueError(f"positions must be [N, 3], got {positions.shape}")
+    vm = np.ascontiguousarray(viewmats, np.float32).reshape(-1, 16)
+    ks = np.ascontiguousarray(Ks, np.float32).reshape(-1, 9)
+    w = np.ascontiguousarray(widths, np.int32).reshape(-1)
+    h = np.ascontiguousarray(heights, np.int32).reshape(-1)
+    if not len(vm) == len(ks) == len(w) == len(h):
+        raise ValueError("viewmats, Ks, widths and heights must have one entry per camera")
+    out = np.empty(len(positions), np.float32)
+    lib.mdi_compute_min_extents(positions, len(positions), vm, ks, w, h, len(vm), out)
+    return out
 
 
 def subsample_pointcloud(
@@ -72,10 +106,15 @@ def subsample_pointcloud(
     min_extents: np.ndarray,
     max_aspect_ratio: float = 1.1,
     extent_multiplier: float = 1.0,
+    split_strategy: str = "spatial_median",
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """KD-split merge with spatial-median splits (the reference's default):
-    leaves whose tight box is small against the points' minimal extents
-    merge to their centroid (positions and colours)."""
+    """KD-split merge: leaves whose tight box is small against the points'
+    minimal extents merge to their centroid (positions and colours). Nodes
+    split at the spatial median (the reference's default), at the median
+    point (``equal_num_pts``) or at the widest gap between points
+    (``max_gap``, spatial median where no gap stands out)."""
+    if split_strategy not in SPLIT_STRATEGIES:
+        raise ValueError(f"split_strategy must be one of {sorted(SPLIT_STRATEGIES)}, got {split_strategy!r}")
     lib = _load()
     positions = np.ascontiguousarray(positions, np.float32)
     rgbs = np.ascontiguousarray(rgbs, np.float32)
@@ -87,7 +126,8 @@ def subsample_pointcloud(
     n = len(positions)
     out_p = np.empty((n, 3), np.float32)
     out_c = np.empty((n, 3), np.float32)
-    m = lib.mdi_subsample_pointcloud(
-        positions, rgbs, ext, n, float(max_aspect_ratio), float(extent_multiplier), out_p, out_c
+    m = lib.mdi_subsample_pointcloud_ex(
+        positions, rgbs, ext, n, float(max_aspect_ratio), float(extent_multiplier),
+        SPLIT_STRATEGIES[split_strategy], out_p, out_c,
     )
     return out_p[:m].copy(), out_c[:m].copy()

@@ -1,6 +1,6 @@
 """The port stands alone: importing every module of ``gs_init_tpu_torch``
 loads neither JAX nor anything of ``gs_init_tpu``, no source file of the
-port (nor ``chip_smoke.py``) imports them, and the entry points default to
+port (nor ``chip_smoke.py`` or ``chip_measure.py``) imports them, and the entry points default to
 the card, raising where there is none rather than running on the CPU."""
 import pathlib
 import re
@@ -38,9 +38,20 @@ def test_fresh_import_loads_no_jax():
     assert bad == "[]", bad
 
 
+def test_ops_package_imports_its_submodules():
+    """As ``gs_init_tpu/ops/__init__.py``: ``import gs_init_tpu_torch.ops``
+    alone makes ``ops.sh``, ``ops.projection`` and ``ops.rasterize_ref``
+    resolve."""
+    probe = ("import gs_init_tpu_torch.ops as ops; "
+             "print(ops.sh.__name__, ops.projection.__name__, ops.rasterize_ref.__name__)")
+    res = subprocess.run([sys.executable, "-c", probe], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == [f"gs_init_tpu_torch.ops.{m}" for m in ("sh", "projection", "rasterize_ref")]
+
+
 @pytest.mark.parametrize(
     "path",
-    sorted(str(p.relative_to(REPO)) for p in PKG.rglob("*.py")) + ["chip_smoke.py"],
+    sorted(str(p.relative_to(REPO)) for p in PKG.rglob("*.py")) + ["chip_smoke.py", "chip_measure.py"],
 )
 def test_source_imports_neither_jax_nor_reference(path):
     assert not FORBIDDEN.search((REPO / path).read_text()), path

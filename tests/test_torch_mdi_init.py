@@ -312,3 +312,100 @@ def test_every_image_skipped_raises(colmap_scene, tmp_path):
     cfg.mdi.alignment.min_valid_sfm_fraction = 1.01
     with pytest.raises(LowDepthAlignmentConfidenceError):
         pts_and_rgb_from_monocular_depth(cfg, Parser(data_dir, test_every=4), device=CPU)
+
+
+class _Boom:
+    """A predictor that must not be asked: every image is in the cache."""
+
+    name = "stub"
+
+    def predict_depth_batch(self, images, intr):
+        raise AssertionError("the depth cache should have been used")
+
+
+def _with_normals(stub):
+    """The stub, now returning a unit normal map beside its depth, as
+    Metric3D does (a fixed field of directions per image size)."""
+    real = stub.predict_depth
+
+    def predict_depth(image, intrinsics):
+        out = real(image, intrinsics)
+        h, w = out.depth.shape
+        yy, xx = np.meshgrid(np.linspace(-1, 1, h), np.linspace(-1, 1, w), indexing="ij")
+        n = np.stack([0.3 * xx, 0.2 * yy, -np.ones_like(xx)], -1)
+        return out._replace(normal=(n / np.linalg.norm(n, axis=-1, keepdims=True)).astype(np.float32))
+
+    stub.predict_depth = predict_depth
+    return stub
+
+
+def test_port_cache_with_normals_read_by_jax(colmap_scene, tmp_path):
+    """The other direction of ``test_runner_initial_state_matches_jax``:
+    the port writes the cache with a predictor that returns normals, and
+    the JAX init reads it with a predictor that raises. Its entries hold
+    the port's depth, mask and normals to the bit, and its cloud equals
+    the one of a JAX init that predicted (points and colours)."""
+    from gs_init_tpu.datasets.parser import Dataset as JDataset
+    from gs_init_tpu.datasets.parser import Parser as JParser
+    from gs_init_tpu.mdi.init import _predict_or_cached as j_predict_or_cached
+
+    data_dir, scene = colmap_scene
+    jcfg, pcfg = _configs(data_dir, tmp_path, "lstsqrs_lof_native")
+    for c in (jcfg, pcfg):
+        c.mdi.use_cache = True
+        c.mdi.cache_dir = str(tmp_path / "cache")
+    jparser, pparser = JParser(data_dir, factor=1, test_every=4), Parser(data_dir, factor=1, test_every=4)
+    pstub = _with_normals(_oracle_stub(StubPredictor, scene, pparser))
+    pts_and_rgb_from_monocular_depth(pcfg, pparser, model=pstub, device=CPU)
+    files = sorted(p for p in (tmp_path / "cache").rglob("*") if p.is_file())
+    assert len(files) == len(pparser.split_indices("train"))
+    assert all(p.suffix == ".npz" for p in files)  # no *.tmp left behind
+
+    items = [it for it in JDataset(jparser, "train")]
+    cached = j_predict_or_cached(jcfg, _Boom(), items)
+    want = _with_normals(_oracle_stub(StubPredictor, scene, pparser))
+    for it, (depth, mask, normal) in zip(items, cached):
+        ref = want.predict_depth(it["image"], None)
+        np.testing.assert_array_equal(depth, ref.depth)
+        np.testing.assert_array_equal(mask, ref.mask)
+        assert normal is not None and normal.dtype == np.float32
+        np.testing.assert_array_equal(normal, ref.normal)
+
+    jp, jc = j_pts_and_rgb(jcfg, jparser, model=_Boom())
+    jcfg.mdi.use_cache = False
+    wp, wc = j_pts_and_rgb(jcfg, jparser, model=_with_normals(_oracle_stub(JStub, scene, jparser)))
+    assert len(jp) > 100
+    np.testing.assert_array_equal(jp, wp)
+    np.testing.assert_array_equal(jc, wc)
+
+
+def test_cached_depth_of_another_shape_is_refused_by_both(colmap_scene, tmp_path):
+    """The cache key, ``<cache_dir>/<predictor>/<dataset>/<image>.npz``,
+    names neither the backbone nor ``data_factor``, so an entry written at
+    another ``data_factor`` is found under the same key (ROADMAP, reference
+    caveats). Both packages then refuse it alike: the init raises (a
+    broadcast of the cached depth against the image fails), the predictor
+    is not asked, and the entry stays on disk as it was: neither package
+    takes it for a corrupted entry to recompute."""
+    from gs_init_tpu.datasets.parser import Parser as JParser
+
+    data_dir, _ = colmap_scene
+    jcfg, pcfg = _configs(data_dir, tmp_path, "lstsqrs_lof_native")
+    for c in (jcfg, pcfg):
+        c.mdi.use_cache = True
+        c.mdi.cache_dir = str(tmp_path / "cache")
+    parser = Parser(data_dir, factor=1, test_every=4)
+    train = [parser.images[int(i)] for i in parser.split_indices("train")]
+    h, w = train[0].height, train[0].width
+    d = tmp_path / "cache" / "stub" / os.path.basename(os.path.normpath(data_dir))
+    d.mkdir(parents=True)
+    # An entry at half the image's size: what a data_factor twice as large writes.
+    for im in train:
+        np.savez(d / (im.name.replace("/", "_") + ".npz"), depth=np.full((h // 2, w // 2), 2.0, np.float32),
+                 mask=np.ones((h // 2, w // 2), bool))
+    before = {p.name: p.read_bytes() for p in d.iterdir()}
+    with pytest.raises((TypeError, ValueError)):  # jax.numpy's broadcast
+        j_pts_and_rgb(jcfg, JParser(data_dir, factor=1, test_every=4), model=_Boom())
+    with pytest.raises(RuntimeError, match="must match the size"):  # torch's broadcast
+        pts_and_rgb_from_monocular_depth(pcfg, parser, model=_Boom(), device=CPU)
+    assert {p.name: p.read_bytes() for p in d.iterdir()} == before

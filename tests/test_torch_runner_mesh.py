@@ -13,7 +13,8 @@ the gaussians over the gauss axis).
 - the MCMC strategy's relocation and noise through the Runner;
 - the monocular-depth init on the mesh, with the depth cache and the
   init-cloud export on: rank 0 alone predicts and writes, and every rank
-  starts from the one-device Runner's state;
+  starts from the one-device Runner's state (the cloud exceeds the
+  capacity: the uniform random subset, in a full buffer);
 - the npz of the mesh run loads into the JAX Runner to 0 ulp.
 """
 import numpy as np
@@ -98,11 +99,18 @@ def test_runner_mesh_mcmc(runs):
 def test_runner_mesh_monocular_depth_init(runs):
     """The mdi init under a mesh: rank 0 alone runs the predictor and writes
     the depth cache (no temporary file left) and the init cloud; every rank
-    starts from the state of a one-device Runner that reads that cache."""
+    starts from the state of a one-device Runner that reads that cache. The
+    cloud exceeds the capacity, so that state is the uniform random subset,
+    drawn alike on every rank and on one device, in a full buffer."""
+    from gs_init_tpu_torch.mdi.init import pts_and_rgb_from_monocular_depth
+
     res = [r[3] for r in runs["ranks"]]
     one = Runner(Config(**_cfg(runs["data_dir"], str(runs["tmp"] / "mdi_one"), "off",
                                init_type="monocular_depth", mdi=runs["mdi"])), device="cpu")
     n_train = len(one.trainset)
+    cap = one.cfg.max_gaussians
+    cloud, _ = pts_and_rgb_from_monocular_depth(one.cfg, one.parser, model=_NoPredictor(), device="cpu")
+    assert len(cloud) > cap and int(one.gstate.alive.sum()) == cap
     assert [r["predicted"] for r in res] == [n_train, 0, 0, 0]
     cached = sorted(p.name for p in (runs["tmp"] / "depth_cache").rglob("*") if p.is_file())
     assert len(cached) == n_train and all(name.endswith(".npz") for name in cached)
@@ -111,6 +119,15 @@ def test_runner_mesh_monocular_depth_init(runs):
     for r in res:
         for k in want:
             np.testing.assert_array_equal(r["state"][k], want[k], err_msg=k)
+
+
+class _NoPredictor:
+    """A predictor that must not be asked: the init reads the cache."""
+
+    name = "stub"
+
+    def predict_depth_batch(self, images, intrinsics):
+        raise AssertionError("the depth cache should have been used")
 
 
 def test_mesh_npz_loads_into_jax_runner(runs):
