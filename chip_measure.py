@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Measurements on one NVIDIA H100 that calibrate checks of chip_smoke.py;
-not part of its run.
+"""Measurements on one NVIDIA H100 that calibrate checks of chip_smoke.py
+or read the port's tracer; not part of chip_smoke.py's run.
 
     python3 chip_measure.py curve-witness    # ~4 minutes on the card
     python3 chip_measure.py growth-variants  # ~4 minutes on the card
+    python3 chip_measure.py trace-probe --workload <cell> --seed <n> [options]
+    python3 chip_measure.py span-cost        # ~1 minute on the card
 
 curve-witness: phase 11's 185-camera garden scene, a cache of the stub's
 predictions, and two one-rank runs of phase 13 (b)'s config from it
@@ -17,8 +19,32 @@ at a lower growth threshold and earlier refines than the default preset's,
 each held to the growth run's checks (the cloud more than doubles, a
 retune grows the pair table after a refine): the measurement behind
 GROWTH_STEPS and GROWTH_OVERRIDES.
+
+trace-probe: one cell of BENCHMARK.json, built in this process by the
+benchmark's own harness (``benchmark/harness``), then windows with the
+port's tracer (``gs_init_tpu_torch/trace.py``) off and on in turns (off, on,
+on, off, ...), each from the same step (train) or over the next images
+(init); then the lines that synchronise the host with the card over a few
+steps (torch's sync debug mode) and a few profiled steps or images with the
+tracer off and with it on (the idle gaps by program span). A window either
+runs ``--window`` seconds or, with ``--blocks N``, a fixed block: the N
+steps before step 700 (100 by default: one refine or relocation; 10: none)
+or three chunks of images. Writes
+``probe-<cell>.json`` (every window's report) under ``--out`` and prints a
+line per window, then ``SUMMARY`` (the rates off and on, the tracer's cost,
+the idle shares and gaps) and ``SYNCS``. ``--root`` runs another checkout's
+harness and program (a parent without the tracer runs its off windows
+only); ``--device cpu`` rehearses a tiny checkout without the card (no
+profiles, no sync sites).
+
+span-cost: host microseconds a span costs, off and on, by part (the flag
+check, ``record_function``, a pair of timing events, an event query), with
+the card idle and busy.
 """
+import argparse
+import json
 import os
+import statistics
 import sys
 import tempfile
 import time
@@ -76,20 +102,340 @@ def growth_variants(dev, card, tmp):
     return failed
 
 
+def probe_args(argv):
+    ap = argparse.ArgumentParser(prog="chip_measure.py trace-probe")
+    ap.add_argument("--workload", required=True)
+    ap.add_argument("--seed", type=int, required=True)
+    ap.add_argument("--window", type=float, default=8.0, help="seconds a window, without --blocks")
+    ap.add_argument("--blocks", type=int, nargs="?", const=100, default=0,
+                    help="fixed blocks: steps [700 - N, 700) (N 100 by default), or 3 chunks of images")
+    ap.add_argument("--turns", type=int, default=None,
+                    help="groups of four windows (off, on, on, off); 3 by default, 5 with --blocks")
+    ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
+    ap.add_argument("--out", default=os.path.join("results", "trace-probe"))
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    return ap.parse_args(argv)
+
+
+def trace_probe(opts) -> dict:
+    """The readings of trace-probe (see the module's doc); returns the
+    summary it prints."""
+    t_start = time.perf_counter()
+    root, out = os.path.abspath(opts.root), os.path.abspath(opts.out)
+    sys.path.insert(0, root)
+    os.chdir(root)
+    from benchmark.harness import common
+
+    common.cache_env()
+    import torch
+
+    from benchmark.harness.trace import profiled
+
+    try:
+        from gs_init_tpu_torch import trace as tracer
+    except ImportError:  # a checkout from before the tracer
+        tracer = None
+    cpu = opts.device == "cpu"
+    dev = torch.device("cpu") if cpu else torch.device("cuda", 0)
+    if not cpu:
+        torch.cuda.set_device(dev)
+    torch.set_num_threads(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def sync():
+        if not cpu:
+            torch.cuda.synchronize(dev)
+
+    cell, config, traffic = common.find_cell(common.benchmark_spec(), opts.workload)
+    args = argparse.Namespace(seed=opts.seed, trace=0, control=None, calibrate=False)
+    os.makedirs(out, exist_ok=True)
+    turns = opts.turns or (5 if opts.blocks else 3)
+    pattern = [0, 1, 1, 0] * turns if tracer is not None else [0, 0] * turns
+    train = traffic["generator"] == "train"
+
+    def set_on(on):
+        if tracer is None:
+            return
+        if on:
+            tracer.enable(dev)
+            tracer.reset()
+        else:
+            tracer.disable()
+
+    def profile(fn):
+        if cpu:
+            fn()
+            return dict(busy_s=0.0, window_s=1.0, breakdown=dict(idle_gaps=[]), kernels={})
+        _, reading = profiled(fn, dev)
+        return dict(busy_s=reading["busy_s"], window_s=reading["window_s"], breakdown=reading["breakdown"],
+                    kernels={k: v[1] for k, v in reading["kernels"].items()})
+
+    def per(rep, name, key, n=1.0):
+        s = rep["spans"].get(name)
+        return None if s is None or s[key] is None else s[key] / n
+
+    res = dict(workload=opts.workload, seed=opts.seed, tracer=tracer is not None, windows=[], profiles={})
+    set_on(1)
+    if train:
+        from benchmark.harness import train as H
+        from gs_init_tpu_torch.datasets.prefetch import BatchPrefetcher
+
+        stages = {}
+        _, cfg, runner = H.build_runner(args, cell, config, traffic, dev, stages)
+        runner._prefetcher = BatchPrefetcher(runner._build_batch, len(runner.trainset), cfg.batch_size,
+                                             depth=cfg.data_prefetch, seed=cfg.seed)
+        loop = H.Loop(runner)
+        ws = traffic["window_start"]
+        for st in range(traffic["warmup_start"], ws):
+            loop.step(st)
+
+        def window():
+            first = 700 - opts.blocks if opts.blocks else ws
+            step, t0 = first, time.perf_counter()
+            while (step < 700) if opts.blocks else (time.perf_counter() < t0 + opts.window):
+                loop.step(step)
+                step += 1
+            return step - first
+
+        def reading(rep, n):
+            c = rep["counters"]
+            calls = sum(rep["spans"].get(k, {}).get("n", 0) for k in ("strategy.refine", "strategy.relocate"))
+            changed = sum(c.get(k, 0) for k in ("strategy.grown", "strategy.pruned", "strategy.relocated"))
+            return dict(host_ms=per(rep, "train_step", "median_host_ms"),
+                        iter_host_ms=per(rep, "runner.iteration", "median_host_ms"),
+                        overflow_share=100.0 * c.get("tiles.overflow", 0)
+                        / max(c.get("tiles.pairs", 0) + c.get("tiles.overflow", 0), 1),
+                        changed_per_call=changed / calls if calls else None)
+
+        def sync_work():
+            for st in range(600, 604):
+                loop.step(st)
+
+        def profile_work():
+            for i in range(traffic["profile_steps"]):
+                loop.step(ws + i)
+
+        close = runner._prefetcher.close
+    else:
+        from benchmark.harness import init as HI
+        from gs_init_tpu_torch.mdi.init import pts_and_rgb_from_monocular_depth as run_init
+
+        stages = {}
+        _, cfg, parser, model, _ = HI.build(args, cell, config, traffic, dev, stages)
+        n_train = len(parser.split_indices("train"))
+        chunk = traffic["chunk_images"]
+        pos = [1]
+
+        def images(n):
+            run_init(cfg, HI.chunk_parser(parser, [p % n_train for p in range(pos[0], pos[0] + n)]),
+                     model=model, device=dev)
+            pos[0] += n
+
+        run_init(cfg, HI.chunk_parser(parser, range(traffic["warmup_images"])), model=model, device=dev)
+
+        def window():
+            n, t0 = 0, time.perf_counter()
+            while not ((n >= 3 * chunk) if opts.blocks else (n and time.perf_counter() >= t0 + opts.window)):
+                images(chunk)
+                n += chunk
+            return n
+
+        def reading(rep, n):
+            return dict(load_s=per(rep, "datasets.load", "host_ms", 1e3 * n),
+                        predict_device_s=per(rep, "init.predict", "device_ms", 1e3 * n),
+                        predict_host_s=per(rep, "init.predict", "host_ms", 1e3 * n),
+                        align_unproject_s=per(rep, "init.align_unproject", "host_ms", 1e3 * n),
+                        init_self_s=per(rep, "init", "self_host_ms", 1e3 * n))
+
+        def sync_work():
+            images(2)
+
+        def profile_work():
+            images(traffic["profile_images"])
+
+        def close():
+            return None
+
+    sync()
+    res["setup_s"] = time.perf_counter() - t_start
+    res["stages"] = stages
+    if tracer is not None:
+        res["setup_report"] = tracer.report()
+    unit = "steps" if train else "images"
+    for on in pattern:
+        set_on(on)
+        sync()
+        t0 = time.perf_counter()
+        n = window()
+        sync()
+        dt = time.perf_counter() - t0
+        w = {"on": on, unit: n, "s": dt}
+        w.update(rate=n / dt) if train else w.update(s_per_image=dt / n)
+        if on:
+            rep = tracer.report()
+            w.update(reading(rep, n), report=rep)
+        set_on(0)
+        res["windows"].append(w)
+        print(json.dumps({k: v for k, v in w.items() if k != "report"}), flush=True)
+    res["sync_sites"] = {} if cpu else sync_sites(sync_work, torch, dev)
+    for on in ([0, 1] if tracer is not None else [0]):
+        set_on(on)
+        key = "on" if on else "off"
+        res["profiles"][key] = profile(profile_work)
+        if on:
+            res["profiles"][key]["report"] = tracer.report()
+        set_on(0)
+    close()
+    res["device"] = "cpu" if cpu else torch.cuda.get_device_name(dev)
+    with open(os.path.join(out, f"probe-{opts.workload}.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    key = "rate" if train else "s_per_image"
+    off = [w[key] for w in res["windows"] if not w["on"]]
+    on = [w[key] for w in res["windows"] if w["on"]]
+    summary = dict(workload=opts.workload, seed=opts.seed, setup_s=res["setup_s"], off=off, on=on)
+    if on:
+        # The tracer's cost: the rate lost (train) or the seconds an image added (init), in %, of
+        # the medians, and of each on window against its neighbouring off window (off, on, on, off):
+        # the quartiles and the median of those pairs.
+        sign = 1 if train else -1
+        summary["cost_pct"] = sign * 100.0 * (statistics.median(off) - statistics.median(on)) / statistics.median(off)
+        ws = [w[key] for w in res["windows"]]
+        pairs = [sign * 100.0 * (a - b) / a for i in range(0, len(ws) - 3, 4)
+                 for a, b in ((ws[i], ws[i + 1]), (ws[i + 3], ws[i + 2]))]
+        summary["cost_pairs_pct"] = statistics.quantiles(pairs, n=4) if len(pairs) > 1 else pairs
+    for k, p in res["profiles"].items():
+        summary[f"idle_{k}"] = 1 - p["busy_s"] / p["window_s"]
+        summary[f"gaps_{k}"] = p["breakdown"]["idle_gaps"][:6]
+    print("SUMMARY " + json.dumps(summary), flush=True)
+    print("SYNCS " + json.dumps(res["sync_sites"]), flush=True)
+    return summary
+
+
+def sync_sites(fn, torch, dev) -> dict:
+    """The port's (or the harness's) lines that synchronised the host with
+    the card while ``fn`` ran, by torch's sync debug mode, with their
+    counts."""
+    import collections
+    import traceback
+    import warnings
+
+    sites = collections.Counter()
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        frames = [f for f in traceback.extract_stack()[:-1]
+                  if "gs_init_tpu_torch" in f.filename or "/benchmark/" in f.filename]
+        if frames:
+            f = frames[-1]
+            where = f.filename.split("/gs_init_tpu_torch/")[-1].split("/benchmark/")[-1]
+            sites[f"{where}:{f.lineno} {f.line}"] += 1
+        else:
+            sites[f"{filename}:{lineno}"] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode(1)
+        try:
+            fn()
+            torch.cuda.synchronize(dev)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return dict(sites)
+
+
+def span_cost(dev) -> None:
+    """Host microseconds a span and its parts cost (the loop's mean)."""
+    import torch
+
+    from gs_init_tpu_torch import trace
+
+    x = torch.randn(4096, 4096, device=dev)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    stream = torch.cuda.current_stream(dev)
+
+    def bench(label, fn, n=20000, busy=False):
+        torch.cuda.synchronize(dev)
+        if busy:  # ~40 large products queued ahead of the loop
+            for _ in range(40):
+                x @ x
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        dt = time.perf_counter() - t
+        torch.cuda.synchronize(dev)
+        cs.log(f"  {label:44s} {1e6 * dt / n:9.2f} us")
+
+    def span():
+        with trace.span("a"):
+            pass
+
+    def nested():
+        with trace.span("a"):
+            with trace.span("b"):
+                pass
+
+    def events():
+        ev[0].record(stream)
+        ev[1].record(stream)
+
+    def record_function():
+        with torch.profiler.record_function("a"):
+            pass
+
+    def launch():
+        x[0, 0].add_(1)
+
+    trace.disable()
+    bench("off: span", span)
+    bench("record_function enter and exit", record_function)
+    bench("2 event records", events)
+    bench("event query", lambda: ev[1].query())
+    bench("one tiny kernel launch", launch)
+    trace.enable("cpu")
+    trace.reset()
+    bench("on, host clock only: span", span)
+    trace.enable(dev)
+    trace.reset()
+    bench("on, with events: span", span)
+    bench("on, with events: nested pair", nested, n=10000)
+    bench("on, with events: span, card busy", span, n=2000, busy=True)
+    bench("tiny launch, card busy", launch, n=2000, busy=True)
+    bench("2 event records, card busy", events, n=2000, busy=True)
+    trace.disable()
+    trace.reset()
+
+
 def main(argv):
     import torch
 
-    if len(argv) != 1 or argv[0] not in ("curve-witness", "growth-variants"):
+    cmds = ("curve-witness", "growth-variants", "trace-probe", "span-cost")
+    if not argv or argv[0] not in cmds or (argv[0] != "trace-probe" and len(argv) != 1):
         print(__doc__, file=sys.stderr)
         return 2
+    t0 = time.perf_counter()
+    if argv[0] == "trace-probe":
+        opts = probe_args(argv[1:])
+        if opts.device == "cuda" and not torch.cuda.is_available():
+            print("chip_measure.py trace-probe needs a CUDA card, or --device cpu", file=sys.stderr)
+            return 2
+        if opts.device == "cuda":
+            cs.log(cs.card_line())
+        trace_probe(opts)
+        cs.log(f"{argv[0]} {opts.workload}: {time.perf_counter() - t0:.1f} s")
+        return 0
     if not torch.cuda.is_available():
         print("chip_measure.py needs a CUDA card", file=sys.stderr)
         return 2
-    t0 = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = cs.card_line()
+    if argv[0] == "span-cost":
+        cs.log(card)
+        torch.cuda.set_device(dev)
+        span_cost(dev)
+        return 0
     cs.build_kernels()
     with tempfile.TemporaryDirectory() as tmp:
         failed = curve_witness(dev, card, tmp) if argv[0] == "curve-witness" else growth_variants(dev, card, tmp)

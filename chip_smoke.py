@@ -3441,7 +3441,7 @@ def garden_path(dev, card, n_cams, width, height, n_fg, n_bg, n_sfm, steps, capa
                 out = real_refine(*a, **kw)
                 sync()
                 rec["refine"].append(dict(step=a[-1], ms=(now() - ta) * 1e3, alive=int(out[0].alive.sum()),
-                                          **out[3]))
+                                          **{k: int(v) for k, v in out[3].items()}))
                 return out
 
             def timed_reset(*a, **kw):
@@ -3800,7 +3800,8 @@ def preset_run(preset, data_dir, parser, stub, res, steps, card, dev):
                 ms = (now() - ta) * 1e3
                 cand, free, granted = grants[-1]
                 rec["refine"].append(dict(step=a[-1], ms=ms, alive=int(out[0].alive.sum()), cand=cand, free=free,
-                                          granted=granted, median=median_scale(out[0]), **out[3]))
+                                          granted=granted, median=median_scale(out[0]),
+                                          **{k: int(v) for k, v in out[3].items()}))
                 return out
 
             patch(dstrat, "_alloc_slots", spy_alloc)
@@ -4850,7 +4851,8 @@ def cached_run(argv, dev, sharded):
     def timed_refine(*a, **kw):
         out = real_refine(*a, **kw)
         rec["refine"].append(dict(step=a[-1], alive=int(out[0].alive.sum()), **dict(zip(("cand", "free", "granted"),
-                                                                                      grants[-1])), **out[3]))
+                                                                                      grants[-1])),
+                                  **{k: int(v) for k, v in out[3].items()}))
         return out
 
     def timed_move(fn, key):

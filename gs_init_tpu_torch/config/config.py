@@ -10,7 +10,8 @@ crops, checkpoints, PLY export, compression, the profiler window, the live
 viewer, SAM segmentation and the init-cloud export, on one GPU or on a
 multi-GPU mesh (``mesh``, ``shard_pixels``). ``data_parallel`` keeps its
 only JAX meaning, a learning-rate batch factor (``engine/optim.py``);
-``gaussian_shards`` is read nowhere, in either package.
+``gaussian_shards`` is read nowhere, in either package. ``trace`` is the
+port's own: its spans and counters (``trace.py``).
 
 TPU-only knobs are accepted and have no effect here: the port always uses
 the f32 16-column pair table and f32 gradient sums (``wire8``,
@@ -285,6 +286,9 @@ class Config:
     tb_every: int = 100
     profile_start: int = -1
     profile_steps: int = 3
+    # Spans and counters (trace.py) over the run, reported to
+    # <result_dir>/stats/trace.json; off, they cost a flag check.
+    trace: bool = False
     tb_save_image: bool = False
     ckpt: Optional[List[str]] = None
     seed: int = 42

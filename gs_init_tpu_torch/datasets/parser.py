@@ -16,6 +16,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from .. import trace
 from .colmap_io import ColmapReconstruction, qvec_to_rotmat, read_reconstruction
 from .normalize import (
     align_principal_axes,
@@ -225,8 +226,10 @@ class Dataset:
         with self._cache_lock:
             hit = self._img_cache.get(i)
         if hit is not None:
+            trace.count("datasets.cache_hits")
             img8, K = hit
             return img8.astype(np.float32) / 255.0, K
+        trace.count("datasets.decoded")
         img = _imread(pim.path).astype(np.float32) / 255.0
         img, K = self._undistort(img, pim)
         if self._cache_budget > 0:
@@ -237,6 +240,7 @@ class Dataset:
                     self._cache_used += img8.nbytes
         return img, K
 
+    @trace.spanned("datasets.load", device=False)
     def __getitem__(self, i: int) -> dict:
         pim = self.parser.images[int(self.indices[i])]
         img, K = self._load(i, pim)

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import trace
 from ..config import Config, DefaultStrategyConfig, MCMCStrategyConfig, to_dict
 from ..datasets.nerfstudio import open_dataset
 from ..datasets.parser import Dataset, Parser
@@ -136,6 +137,13 @@ class Runner:
         device=None,
         mdi_model=None,  # a depth predictor for monocular-depth init (tests, e2e)
     ):
+        if cfg.trace:  # from here on, so that the set-up's spans are in the report
+            trace.enable(resolve_device(device))
+            trace.reset()
+        with trace.span("runner.setup"):
+            self._setup(cfg, parser, trainset, valset, device, mdi_model)
+
+    def _setup(self, cfg, parser, trainset, valset, device, mdi_model):
         self.cfg = cfg
         self._mdi_model = mdi_model
         self.device = resolve_device(device)
@@ -184,7 +192,7 @@ class Runner:
         self._pairs_max = 0
         self._prefetcher = None
         self._profiler = None
-        self._phase_times = {"data": 0.0, "step": 0.0}
+        self._phase_times = {"data": 0.0}
         self._writer = None
         # Held by each train iteration and by the viewer's renders: a step
         # updates the parameters in place, so a render must not overlap one.
@@ -260,6 +268,7 @@ class Runner:
         g, a, s = fn(*pshard.global_state(self.gstate, self.adam, self.sstate, self.mesh))
         self.gstate, self.adam, self.sstate = pshard.local_state(g, a, s, self.mesh)
 
+    @trace.spanned("runner.init_gaussians")
     def _init_gaussians(self):
         cfg = self.cfg
         if cfg.init_type == "random":
@@ -405,6 +414,7 @@ class Runner:
             batch.depth_values = self._to_device(dv)
         return batch
 
+    @trace.spanned("runner.retune", device=False)
     def _maybe_retune_capacity(self, metrics, step: int, overflowed: bool = False) -> None:
         """Right-size pair_capacity from the peak pair count seen since the
         last decision (host sync): grow when pairs overflowed it (this
@@ -430,24 +440,30 @@ class Runner:
             f"(observed {pairs} pairs, overflow {overflow}) at step {step}"
         )
         cfg.pair_capacity = new_cap
+        trace.count("runner.retunes")
 
     def train_iteration(self, step: int) -> Dict[str, torch.Tensor]:
         with self.lock:
+            trace.set_step(step)
             return self._train_iteration(step)
 
+    @trace.spanned("runner.iteration", device=False)
     def _train_iteration(self, step: int) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
         if cfg.profile_start >= 0 and step == cfg.profile_start:
             self._start_profiler()
-        t_data = time.time()
-        batch = self._prefetcher.get() if self._prefetcher is not None else self._next_batch()
-        self._phase_times["data"] += time.time() - t_data
+        with trace.span("runner.data", device=False):
+            t_data = time.time()
+            batch = self._prefetcher.get() if self._prefetcher is not None else self._next_batch()
+            self._phase_times["data"] += time.time() - t_data
         bkgd = None
         if cfg.random_bkgd:
             bkgd = torch.rand((cfg.batch_size, 3), generator=self.gen, device=self.device)
         self.gstate, self.adam, self.sstate, self.aux, self.aux_opt, metrics = self.step_fn(
             self.gstate, self.adam, self.sstate, self.aux, self.aux_opt, batch, step, bkgd=bkgd
         )
+        trace.count_device("tiles.pairs", metrics["pairs"])
+        trace.count_device("tiles.overflow", metrics["overflow"])
         s = cfg.strategy
         if step == 0 or (step % s.refine_every == 0 and step > 0):
             self._maybe_retune_capacity(metrics, step)
@@ -476,7 +492,6 @@ class Runner:
             self.gstate = mcmc.add_noise(self.gstate, eps, lr_now, s)
         if cfg.profile_start >= 0 and step == cfg.profile_start + cfg.profile_steps - 1:
             self._stop_profiler()
-        self._phase_times["step"] += time.time() - t_data
         self.global_step = step
         return metrics
 
@@ -514,7 +529,12 @@ class Runner:
         return self.viewer.start()
 
     def train(self) -> dict:
+        """The training loop to ``max_steps``; returns ``train_final.json``'s
+        stats. With ``cfg.trace`` the tracer's report goes to
+        ``<result_dir>/stats/trace.json`` at the end."""
         cfg = self.cfg
+        if cfg.trace:
+            trace.enable(self.device)
         if not cfg.disable_viewer and self.viewer is None:
             self.start_viewer()
         if cfg.data_prefetch > 0:
@@ -531,6 +551,18 @@ class Runner:
                 self._prefetcher.close()
                 self._prefetcher = None
             self._stop_profiler()
+            if cfg.trace:
+                self._write_trace()
+
+    def _write_trace(self) -> None:
+        """The tracer's report to ``stats/trace.json`` (main process), with
+        the last spans under ``recent`` (each with its parent and step, so
+        the spans of one step can be grouped), and the tracer off."""
+        rep = dict(trace.report(), recent=trace.records())
+        trace.disable()
+        if self.is_main:
+            with open(os.path.join(self.cfg.result_dir, "stats", "trace.json"), "w") as f:
+                json.dump(rep, f, indent=2)
 
     def _train_loop(self) -> dict:
         cfg = self.cfg
@@ -550,31 +582,29 @@ class Runner:
             missed = torch.maximum(missed, torch.where(over > 0, over + metrics["pairs"], 0))
             # Growth after a refine or relocation shows as overflow on the
             # step after it: one host sync per refine cycle catches it.
-            if (
-                step % s.refine_every == 1
-                and s.refine_start_iter < step < s.refine_stop_iter + 2
-                and int(metrics["overflow"]) > 0
-            ):
-                self._maybe_retune_capacity(metrics, step)
+            if step % s.refine_every == 1 and s.refine_start_iter < step < s.refine_stop_iter + 2:
+                if int(metrics["overflow"]) > 0:
+                    self._maybe_retune_capacity(metrics, step)
             if step % cfg.tb_every == 0:
-                last = {k: float(v) for k, v in metrics.items()}
-                demand = int(missed)
-                missed.zero_()
-                self._pairs_max = max(self._pairs_max, int(last["pairs"]) + int(last["overflow"]), demand)
-                if demand > 0:
-                    self._maybe_retune_capacity(metrics, step, overflowed=True)
-                n_gs = self.num_gaussians()
-                self.refresh_view()
-                mem_stats = device_memory_stats(self.device)
-                if self.is_main:
-                    w = self.writer
-                    for k, v in last.items():
-                        w.add_scalar(f"train/{k}", v, step)
-                    w.add_scalar("train/num_GS", n_gs, step)
-                    if mem_stats:
-                        w.add_scalar("train/mem_peak_gb", mem_stats["peak_bytes_in_use"] / 1024**3, step)
-                mem = format_memory_stats(self.device) if self.device.type == "cuda" else ""
-                self.log(f"step {step}: loss={last['loss']:.4f} num_GS={n_gs} {mem}".rstrip())
+                with trace.span("runner.log", device=False):
+                    last = {k: float(v) for k, v in metrics.items()}
+                    demand = int(missed)
+                    missed.zero_()
+                    self._pairs_max = max(self._pairs_max, int(last["pairs"]) + int(last["overflow"]), demand)
+                    if demand > 0:
+                        self._maybe_retune_capacity(metrics, step, overflowed=True)
+                    n_gs = self.num_gaussians()
+                    self.refresh_view()
+                    mem_stats = device_memory_stats(self.device)
+                    if self.is_main:
+                        w = self.writer
+                        for k, v in last.items():
+                            w.add_scalar(f"train/{k}", v, step)
+                        w.add_scalar("train/num_GS", n_gs, step)
+                        if mem_stats:
+                            w.add_scalar("train/mem_peak_gb", mem_stats["peak_bytes_in_use"] / 1024**3, step)
+                    mem = format_memory_stats(self.device) if self.device.type == "cuda" else ""
+                    self.log(f"step {step}: loss={last['loss']:.4f} num_GS={n_gs} {mem}".rstrip())
             if step + 1 in cfg.save_steps or step + 1 == cfg.max_steps:
                 self.save(step + 1)
             if cfg.save_ply and step + 1 in cfg.ply_steps:
@@ -587,7 +617,6 @@ class Runner:
             elapsed=time.time() - t0,
             num_GS=self.num_gaussians(),
             data_time=self._phase_times["data"],
-            step_time=self._phase_times["step"] - self._phase_times["data"],
             **last,
         )
         if self.device.type == "cuda":

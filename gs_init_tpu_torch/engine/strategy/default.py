@@ -15,6 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ... import trace
 from ...config import DefaultStrategyConfig
 from ...ops.projection import quat_to_rotmat
 from ..optim import AdamState
@@ -83,6 +84,7 @@ def split_noise(capacity: int, generator: torch.Generator, device=None):
     return eps1, eps2
 
 
+@trace.spanned("strategy.refine")
 @torch.no_grad()
 def refine(
     gstate: GaussianState,
@@ -95,7 +97,12 @@ def refine(
     step: int,
 ):
     """Grow (duplicate / split) then prune. Returns (gstate, adam, new
-    strategy state, stats); the buffers are updated in place."""
+    strategy state, stats); the buffers are updated in place. ``stats``
+    holds 0-d device tensors, as the JAX package counts them: the
+    candidates to duplicate (``n_dup``) and to split (``n_split``), granted
+    a slot or not, and the slots the prune test flags (``n_pruned``), dead
+    ones included. The tracer counts what changed: ``strategy.grown``, the
+    new gaussians, and ``strategy.pruned``, the alive ones pruned."""
     params, alive = gstate.params, gstate.alive
     cap = alive.shape[0]
     dev = alive.device
@@ -131,6 +138,7 @@ def refine(
         )
 
     src = torch.nonzero(ok).flatten()
+    trace.count("strategy.grown", src.shape[0])
     d = dst[src]
     for name, buf in params.items():
         buf[d] = new_vals[name][src]
@@ -151,14 +159,15 @@ def refine(
             (step < cfg.refine_scale2d_stop_iter) & (sstate.radii_max > cfg.prune_scale2d)
         )
     prune = prune | (is_too_big & (step > cfg.reset_every))
+    if trace.enabled():
+        trace.count_device("strategy.pruned", (alive & prune).sum())
     alive &= ~prune
 
-    stats = dict(
-        n_dup=int(is_dup.sum()), n_split=int(is_split.sum()), n_pruned=int(prune.sum())
-    )
+    stats = dict(n_dup=is_dup.sum(), n_split=is_split.sum(), n_pruned=prune.sum())
     return gstate, adam, init_state(cap, dev), stats
 
 
+@trace.spanned("strategy.reset_opacities")
 @torch.no_grad()
 def reset_opacities(gstate: GaussianState, adam: AdamState, cfg: DefaultStrategyConfig):
     """Clamp opacities to 2 * prune_opa (logit) and zero their moments."""

@@ -21,6 +21,7 @@ from typing import Tuple
 
 import torch
 
+from ... import trace
 from ...config import MCMCStrategyConfig
 from ...ops.projection import quat_to_rotmat
 from ..optim import AdamState
@@ -86,7 +87,9 @@ def refine(
     cfg: MCMCStrategyConfig,
 ):
     """Relocate dead gaussians and add new ones (5% growth up to cap_max),
-    in place. Returns (gstate, adam, sstate)."""
+    in place. Returns (gstate, adam, sstate). The tracer counts the
+    receivers, dead slots refilled and free slots added, as
+    ``strategy.relocated``."""
     params, alive = gstate.params, gstate.alive
     cap = alive.shape[0]
     opa, dead, live = live_mask(gstate, cfg)
@@ -99,6 +102,8 @@ def refine(
     add_mask = free & (add_rank < torch.clamp(target_n - n_alive, min=0))
 
     recv = dead | add_mask
+    if trace.enabled():
+        trace.count_device("strategy.relocated", recv.sum())
     sent = torch.where(recv, targets, cap)  # cap: the sentinel of non-receivers
     extra = torch.zeros(cap + 1, dtype=torch.int32, device=alive.device)
     extra.scatter_add_(0, sent, torch.ones_like(sent, dtype=torch.int32))
@@ -131,6 +136,7 @@ def refine(
     return gstate, adam, sstate
 
 
+@trace.spanned("strategy.relocate")
 def relocate(gstate: GaussianState, adam: AdamState, sstate, generator: torch.Generator,
              cfg: MCMCStrategyConfig):
     """``refine`` with targets drawn by ``draw_targets`` (the Runner's call)."""
@@ -138,6 +144,7 @@ def relocate(gstate: GaussianState, adam: AdamState, sstate, generator: torch.Ge
     return refine(gstate, adam, sstate, draw_targets(opa, live, generator), cfg)
 
 
+@trace.spanned("strategy.noise")
 @torch.no_grad()
 def add_noise(gstate: GaussianState, eps: torch.Tensor, lr: float, cfg: MCMCStrategyConfig):
     """Covariance-shaped positional noise on near-transparent gaussians, in

@@ -26,6 +26,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .. import trace
 from ..config import MCMCStrategyConfig
 from ..ops.projection import view_directions
 from ..ops.rasterize import check_scan
@@ -43,6 +44,18 @@ from .optim import (
 )
 from .params import PARAM_NAMES, AuxParams, GaussianParams, GaussianState, aux_from_leaves, aux_leaves
 from .strategy import default as default_strategy
+
+# The step's phases: the boundary each ends at (the step's ``mark``) and
+# its span, in order.
+STEP_PHASES = {
+    "setup": "train_step.setup",
+    "render": "train_step.render",
+    "loss": "train_step.loss",
+    "backward": "train_step.backward",
+    "adam": "optim.adam",
+    "aux": "train_step.aux",
+    "stats": "train_step.stats",
+}
 
 
 @dataclass
@@ -177,7 +190,9 @@ def make_train_step(cfg, acfg: AdamConfig, width: int, height: int):
     ``aux_opt`` their Adam states (``init_aux_opt(aux)``). ``bkgd`` [B, 3]
     is the random background when ``cfg.random_bkgd`` (the caller draws
     it). ``mark(name)``, when given, is called at each phase boundary
-    (``chip_smoke.py`` records CUDA events there). The gaussian buffers,
+    (``chip_smoke.py`` records CUDA events there); with the tracer on, each
+    phase is a span (``STEP_PHASES``) and the whole call is ``train_step``.
+    The gaussian buffers,
     the aux groups, their Adam moments and the strategy statistics update in
     place. Metrics stay on the device (no host sync)."""
     use_absgrad = bool(getattr(cfg.strategy, "absgrad", False))
@@ -195,6 +210,7 @@ def make_train_step(cfg, acfg: AdamConfig, width: int, height: int):
     )
     scan_checked = False
 
+    @trace.spanned("train_step")
     def train_step(
         gstate: GaussianState,
         adam: AdamState,
@@ -207,7 +223,7 @@ def make_train_step(cfg, acfg: AdamConfig, width: int, height: int):
         mark: Optional[Callable[[str], None]] = None,
     ):
         nonlocal scan_checked
-        mark = mark or (lambda name: None)
+        mark = trace.phases(STEP_PHASES, mark)
         p = gstate.params
         alive = gstate.alive
         dev = p.means.device

@@ -11,7 +11,8 @@ Every C entry point takes device pointers and the CUDA stream as
 ``c_void_p`` and returns ``cudaGetLastError()`` after its launch; ``check``
 raises on a non-zero code. ``LAUNCHES`` counts launches per kernel: the
 wrappers in ``ops/rasterize.py`` add one where they launch, and nowhere
-else, so a run can show that its path went through the kernels.
+else, so a run can show that its path went through the kernels. With the
+tracer on (``trace.py``) ``build`` is the span ``kernels.build``.
 
 Nothing here runs at import time: the CPU tests import every module.
 """
@@ -25,6 +26,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+from . import trace
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -86,6 +89,7 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
+@trace.spanned("kernels.build", device=False)
 def build(names=None) -> dict:
     """Compile the named kernels (all by default) that have no library yet,
     one ``nvcc`` each, all started together. Returns seconds per build."""

@@ -18,6 +18,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ... import trace
 from ..segmentation import merge_regions, region_margin_mask, slic_depth
 from .interp import align_interpolate
 from .lstsqrs import weighted_scale_shift
@@ -81,25 +82,27 @@ def align_depth(
         )
         return aligned, np.asarray(pred_mask).copy()
     t0 = time.perf_counter()
-    if seg.method == "slic":
-        labels = slic_depth(
-            pred_depth, np.asarray(pred_mask),
-            n_segments=seg.slic_n_segments, compactness=seg.slic_compactness,
-        )
-    elif seg.method == "sam":
-        from ..segmentation_sam import segment_depth_sam
+    with trace.span("init.segment"):
+        if seg.method == "slic":
+            labels = slic_depth(
+                pred_depth, np.asarray(pred_mask),
+                n_segments=seg.slic_n_segments, compactness=seg.slic_compactness,
+            )
+        elif seg.method == "sam":
+            from ..segmentation_sam import segment_depth_sam
 
-        labels = segment_depth_sam(
-            pred_depth, np.asarray(pred_mask), normals, seg,
-            allow_random_weights=seg.sam_allow_random_weights, device=device,
-        )
-    else:
-        raise NotImplementedError(f"unknown segmenter {seg.method!r}")
+            labels = segment_depth_sam(
+                pred_depth, np.asarray(pred_mask), normals, seg,
+                allow_random_weights=seg.sam_allow_random_weights, device=device,
+            )
+        else:
+            raise NotImplementedError(f"unknown segmenter {seg.method!r}")
     t1 = time.perf_counter()
-    labels = merge_regions(
-        labels, pred_depth, sfm_pix[valid],
-        gradient_threshold=seg.merge_gradient_threshold, min_sfm_points=seg.merge_min_sfm_points,
-    )
+    with trace.span("init.merge"):
+        labels = merge_regions(
+            labels, pred_depth, sfm_pix[valid],
+            gradient_threshold=seg.merge_gradient_threshold, min_sfm_points=seg.merge_min_sfm_points,
+        )
     if timings is not None:
         timings.update(segment=t1 - t0, merge=time.perf_counter() - t1)
     aligned = np.full((h, w), INVALID_DEPTH, np.float32)

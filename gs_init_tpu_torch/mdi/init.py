@@ -30,6 +30,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from ..datasets.parser import Dataset
 from ..device import generator as make_generator
 from ..device import resolve_device
@@ -54,6 +55,7 @@ def _cache_path(cfg, image_name: str) -> str:
     return os.path.join(d, image_name.replace("/", "_") + ".npz")
 
 
+@trace.spanned("init.predict")
 def _predict_or_cached(cfg, model, items):
     """Depth, mask and normal (or None) per dataset item, through the cache."""
     preds = [None] * len(items)
@@ -96,6 +98,7 @@ def _predict_or_cached(cfg, model, items):
     return preds
 
 
+@trace.spanned("init")
 def pts_and_rgb_from_monocular_depth(
     cfg,
     parser,
@@ -153,10 +156,12 @@ def pts_and_rgb_from_monocular_depth(
     n_skipped = 0
     for start in range(0, len(trainset), bs):
         items = [trainset[i] for i in range(start, min(start + bs, len(trainset)))]
+        trace.set_item(items[0]["image_name"])
         t_pred = time.perf_counter()
         preds = _predict_or_cached(cfg, model, items)
         t_pred = (time.perf_counter() - t_pred) / len(items)
         for it, (depth, mask, normal) in zip(items, preds):
+            trace.set_item(it["image_name"])
             t0 = time.perf_counter()
             stages, parts = {"predict": t_pred}, {}
             h, w = it["image"].shape[:2]
@@ -182,20 +187,22 @@ def pts_and_rgb_from_monocular_depth(
                     )
                     continue
                 t1 = time.perf_counter()
-                aligned, amask = align_depth(
-                    np.asarray(depth, np.float32), np.asarray(mask),
-                    pix.cpu().numpy(), gt_z.cpu().numpy(), ok.cpu().numpy(), mdi.alignment,
-                    generator=gen, rbf_seed=rbf_seed, device=dev, normals=normal, timings=parts,
-                )
+                with trace.span("init.align"):
+                    aligned, amask = align_depth(
+                        np.asarray(depth, np.float32), np.asarray(mask),
+                        pix.cpu().numpy(), gt_z.cpu().numpy(), ok.cpu().numpy(), mdi.alignment,
+                        generator=gen, rbf_seed=rbf_seed, device=dev, normals=normal, timings=parts,
+                    )
                 t2 = time.perf_counter()
-                aligned_t = T(aligned)
-                world, m = masks_and_unproject(
-                    aligned_t, T(amask, torch.bool), c2w, K, pix, ok,
-                    width=w, height=h, **subsample_kw,
-                )
-                if per_image is not None:
-                    sync()
-                    stages.update(align=t2 - t1, unproject=time.perf_counter() - t2)
+                with trace.span("init.unproject"):
+                    aligned_t = T(aligned)
+                    world, m = masks_and_unproject(
+                        aligned_t, T(amask, torch.bool), c2w, K, pix, ok,
+                        width=w, height=h, **subsample_kw,
+                    )
+                    if per_image is not None:
+                        sync()
+                        stages.update(align=t2 - t1, unproject=time.perf_counter() - t2)
                 s = t = None
                 if per_image is not None:
                     # Zeros, not NaN, where the prediction is invalid: the fit
@@ -208,19 +215,20 @@ def pts_and_rgb_from_monocular_depth(
                     )
             else:
                 t1 = time.perf_counter()
-                out = points_from_depth(
-                    depth_t, mask_t, c2w, K, T(sfm), T(valid, torch.bool), generator=gen,
-                    width=w, height=h,
-                    align_method=mdi.alignment.method,
-                    ransac_iters=mdi.alignment.ransac.max_iterations,
-                    ransac_threshold=mdi.alignment.ransac.inlier_threshold,
-                    sample_size=mdi.alignment.ransac.sample_size,
-                    **subsample_kw,
-                )
-                frac = float(out.valid_sfm_fraction)
-                if per_image is not None:
-                    sync()
-                    stages["align_and_unproject"] = time.perf_counter() - t1
+                with trace.span("init.align_unproject"):
+                    out = points_from_depth(
+                        depth_t, mask_t, c2w, K, T(sfm), T(valid, torch.bool), generator=gen,
+                        width=w, height=h,
+                        align_method=mdi.alignment.method,
+                        ransac_iters=mdi.alignment.ransac.max_iterations,
+                        ransac_threshold=mdi.alignment.ransac.inlier_threshold,
+                        sample_size=mdi.alignment.ransac.sample_size,
+                        **subsample_kw,
+                    )
+                    frac = float(out.valid_sfm_fraction)
+                    if per_image is not None:
+                        sync()
+                        stages["align_and_unproject"] = time.perf_counter() - t1
                 if frac < mdi.alignment.min_valid_sfm_fraction:
                     n_skipped += 1
                     _LOGGER.warning(

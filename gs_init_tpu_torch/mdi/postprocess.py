@@ -17,6 +17,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from ..ops.lof import lof_inlier_mask
 
 # Points per block of compute_minimal_gaussian_extents: [C, 65536, 3] float32
@@ -100,6 +101,7 @@ def native_merge_subsample(
     return native.subsample_pointcloud(pts, rgbs, extents, max_aspect_ratio, extent_multiplier)
 
 
+@trace.spanned("init.postprocess")
 def postprocess_point_cloud(cfg, pts, rgbs, viewmats, Ks, widths, heights, device=None, timings=None):
     """LOF removal, then the merge, as configured. ``timings``, when given,
     receives each stage's seconds and point count after it (``lof``,
