@@ -26,6 +26,23 @@ no result line.
    on (the aux groups' Adam moments too); MCMC relocation and noise with
    the same draws (8192 slots), and the card's own draws; color_correct on
    a natural and on a constant image (648x420).
+2b. Projection, SH colours and the table pack (ops/project_pack.py): K4
+   and K5 against the plain composition and project_pack_bwd_plain at the
+   train cells' shapes (1M slots, 1296x840, one camera; the SH schedule at
+   degree 0 and at degree 3) and on 100k-slot cases with the edges (on and
+   behind the near plane, at a camera centre, beyond the 1.3 tan-fov clamp,
+   long thin covariances, det <= 0, colours clamped at 0, dead slots) for
+   each camera model, antialiased, colours, two cameras and the viewmats'
+   gradient, and SH coefficients only as many as the degree needs. Radii
+   and extents equal on at least 99.999% of entries and off by at most 1
+   elsewhere, the table within 1e-5 of max(1, |x|); each gradient leaf
+   against project_pack_bwd_plain and against autograd through the plain
+   forward: the norm of the difference under 1e-4 of the plain leaf's
+   (the largest reading on an H100 is 2.6e-5; a flipped sign, swapped
+   components or permuted rows give ~1), the norms' gap under 1e-5; K4
+   once a render, K5 once a backward; both timed beside their byte bounds
+   and the plain versions, and phase 4's kernel rows take the degree-3
+   case's times.
 3. The main path: the train step at bench.py's flagship scenario (300k
    gaussians, capacity 393216, 1296x840, tile 32, chunk 128, SH degree 3,
    L1 + SSIM, Adam, densification statistics), a step function built
@@ -41,6 +58,9 @@ no result line.
    empty kernel and a copy of its inputs to its outputs launched the same
    way: its bound that a launch can reach is the larger of its bytes and
    operations bound and the copy's time (the launch and copy floor).
+   The `kernels` line's rows for K4 and K5 take phase 2b's 1M-slot SH
+   degree 3 case (times, plain times, byte bounds, largest absolute and
+   relative errors) and phase 3's launch counts.
 3b. The flagship under the mcmc preset (init opacity 0.5, scale 0.1,
    opacity and scale regularisers), a relocation every 10 steps from step
    0 (2 in the 20 timed steps): step, relocation and noise times, device
@@ -291,6 +311,16 @@ KERNELS = {
         route="cuda",
         source="gs_init_tpu_torch/csrc/scan_probe.cu",
         replaces="gs_init_tpu/ops/rasterize.py:154",
+    ),
+    "project_pack_fwd": dict(
+        route="cuda",
+        source="gs_init_tpu_torch/csrc/project_pack_fwd.cu",
+        replaces="none (XLA fused gs_init_tpu/ops/render.py's projection, SH colours and pack)",
+    ),
+    "project_pack_bwd": dict(
+        route="cuda",
+        source="gs_init_tpu_torch/csrc/project_pack_bwd.cu",
+        replaces="none (XLA fused their VJP)",
     ),
 }
 
@@ -803,6 +833,222 @@ def points_from_depth_card_vs_cpu(dev):
         raise RuntimeError("points_from_depth with the card's own draws missed the stub's scale")
 
 
+# ----------------------------------------------------------------- phase 2b
+
+# The train cells' shapes: garden at data_factor 4, the default capacity,
+# one camera a step.
+PP_GARDEN = dict(n=1_000_000, width=1296, height=840)
+PP_LEAVES = ("means", "quats", "scales", "opacities", "colors", "viewmats")
+# Each gradient leaf's relative L2 distance from the plain one.
+PP_GRAD_RTOL = 1e-4
+# The case whose times phase 4's kernel rows report.
+PP_REPORTED = "garden, SH degree 3 active"
+
+
+def project_pack_case(dev, n, width, height, c=1, camera_model="pinhole", colors="sh", seed=0):
+    """Gaussians in a box before ``c`` cameras (camera 0 the identity), the
+    first rows the edge cases: on and behind the near plane, at the camera
+    centre (not for fisheye, whose forward is NaN there), beyond the 1.3
+    tan-fov clamp, long thin covariances, colours clamped at 0; 2% of the
+    slots dead and opacities from 0.002 (under 1/255: culled)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    means = np.stack([rng.uniform(-4, 4, n), rng.uniform(-3, 3, n), rng.uniform(0.3, 9.0, n)], -1)
+    scales = np.exp(rng.uniform(np.log(2e-3), np.log(0.3), (n, 3)))
+    sh0, shn = rng.normal(0, 0.8, (n, 1, 3)), rng.normal(0, 0.2, (n, 15, 3))
+    alive = rng.uniform(size=n) > 0.02
+    means[:5] = [[0.1, 0.05, 0.01], [0.2, -0.1, -0.5], [0.0, 0.0, 0.0], [30.0, 0.1, 1.0], [-0.2, -25.0, 1.0]]
+    if camera_model == "fisheye":
+        means[2] = [0.0, 0.0, 1.0]
+    scales[5:9] = [[0.6, 0.002, 0.002], [0.002, 0.5, 0.003], [0.4, 0.4, 0.001], [0.001, 0.002, 0.7]]
+    sh0[9:12] = -3.0
+    vm = np.tile(np.eye(4), (c, 1, 1))
+    for i in range(1, c):
+        ang = 0.2 * i
+        vm[i, :3, :3] = [[np.cos(ang), 0, np.sin(ang)], [0, 1, 0], [-np.sin(ang), 0, np.cos(ang)]]
+        vm[i, :3, 3] = [0.3 * i, -0.1, 0.5]
+    f = width / 8.0 if camera_model == "ortho" else 0.85 * width
+    K = np.array([[f, 0, width / 2], [0, f, height / 2], [0, 0, 1]])
+    T = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    case = dict(means=T(means), quats=T(rng.normal(size=(n, 4))), scales=T(scales),
+                opacities=T(rng.uniform(0.002, 0.99, n)), viewmats=T(vm), Ks=T(np.tile(K, (c, 1, 1))),
+                alive=torch.as_tensor(alive, device=dev), width=width, height=height)
+    if colors == "sh":
+        case.update(colors=T(np.concatenate([sh0, shn], 1)), sh_degree=3)
+    else:
+        shape = (n, 3) if colors == "rgb" else (c, n, 3)
+        case.update(colors=T(rng.uniform(0, 1, shape)), sh_degree=None)
+    return case
+
+
+def project_pack_det_case(dev, n=20_000, width=1296, height=840):
+    """For eps2d -0.3: half the gaussians axis-aligned needles (x long, y and
+    z 5e-4), whose 2D covariance then has det < 0 by a wide margin; half
+    with every scale at least 0.05, det > 0 by a wide margin. No det near 0,
+    where the conic's gradient is rounding noise."""
+    import torch
+
+    case = project_pack_case(dev, n, width, height)
+    rng = np.random.default_rng(1)
+    h = n // 2
+    q = rng.normal(size=(n, 4))
+    q[:h] = [1.0, 0.0, 0.0, 0.0]
+    sc = rng.uniform(0.05, 0.2, (n, 3))
+    sc[:h, 1:] = 5e-4
+    means = np.stack([rng.uniform(-0.5, 0.5, n), rng.uniform(-0.3, 0.3, n), rng.uniform(3.0, 5.0, n)], -1)
+    T = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    case.update(means=T(means), quats=T(q), scales=T(sc))
+    return case
+
+
+def pp_bytes(n, c, active_bases, sh_coefs, colours_floats):
+    """Bytes K4 and K5 must move: the gaussian and the active SH (or the
+    colours) in, the rows, radii and extents out; the backward reads the
+    gaussian, the active SH and 48 bytes of each dtable row, and writes
+    every gradient."""
+    g_in = n * (12 + 16 + 12 + 4)
+    colour_in = 4 * colours_floats if active_bases == 0 else n * 12 * active_bases
+    fwd = g_in + n + colour_in + c * n * (64 + 4 + 8)
+    bwd = g_in + colour_in + c * n * 48 + g_in + (n * 12 * sh_coefs if active_bases else 4 * colours_floats)
+    return fwd, bwd
+
+
+def check_project_pack(dev, case, tag, camera_model="pinhole", antialiased=False, sh_active=None, pose=False,
+                       eps2d=0.3, timed=False):
+    """K4 and K5 against the plain composition and project_pack_bwd_plain on
+    one case (module docstring, phase 2b); returns the measurements."""
+    import torch
+    from gs_init_tpu_torch import kernels
+    from gs_init_tpu_torch.ops import project_pack as ppk
+
+    W, H, n, c = case["width"], case["height"], case["means"].shape[0], case["viewmats"].shape[0]
+    mask = None
+    if case["sh_degree"] is not None and sh_active is not None:
+        mask = (torch.arange(16, device=dev) < sh_active).float()
+    kw = dict(sh_degree=case["sh_degree"], sh_mask=mask, near_plane=0.01, eps2d=eps2d, antialiased=antialiased,
+              camera_model=camera_model)
+    names = [k for k in PP_LEAVES if case.get(k) is not None and (k != "viewmats" or pose)]
+
+    def leaves():
+        return {k: case[k].clone().requires_grad_(k in names) for k in PP_LEAVES if case.get(k) is not None}
+
+    def args(lv):
+        return (lv["means"], lv["quats"], lv["scales"], lv["opacities"], lv["colors"], lv["viewmats"], case["Ks"],
+                W, H)
+
+    lp = leaves()
+    tp, rp, ep, _ = ppk.project_pack_plain(*args(lp), alive=case["alive"], **kw)
+    lk = leaves()
+    dummy = torch.zeros((c, n, 2), device=dev, requires_grad=True)
+    l0 = dict(kernels.LAUNCHES)
+    tk, rk, ek, _ = ppk.project_pack(*args(lk), alive=case["alive"], means2d_dummy=dummy, **kw)
+    torch.cuda.synchronize()
+    same_r = float((rk == rp).float().mean())
+    same_e = float((ek == ep).all(-1).float().mean())
+    dr = int(max((rk - rp).abs().max(), (ek - ep).abs().max()))
+    both_nan = torch.isnan(tk) & torch.isnan(tp)
+    rel = torch.where(both_nan, 0.0, (tk - tp).abs() / tp.abs().clamp(min=1.0)).detach()
+    terr = float(rel.max())
+    tabs = float(torch.where(both_nan, 0.0, (tk - tp).abs()).detach().max())
+    col_err = [float(x) for x in rel[:, :10].amax(0)]
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    g = torch.randn(tp.shape, generator=gen, device=dev)
+    g[:, 10:] = 0.0
+    want = torch.autograd.grad((tp * g).sum(), [lp[k] for k in names])
+    spec = dict(zip(PP_LEAVES, ppk.project_pack_bwd_plain(
+        g, *args(case), want_viewmats=pose, **kw)))
+    got = torch.autograd.grad((tk * g).sum(), [lk[k] for k in names] + [dummy])
+    torch.cuda.synchronize()
+    launched = {k: kernels.LAUNCHES[k] - l0[k] for k in ("project_pack_fwd", "project_pack_bwd")}
+    gaps, diffs, auto = {}, {}, {}
+    gabs = 0.0
+    for k, a, w in zip(names, got, want):
+        b = spec[k]
+        gabs = max(gabs, float((a - b).abs().max()))
+        nb = float(torch.linalg.norm(b.double()))
+        gaps[k] = abs(float(torch.linalg.norm(a.double())) - nb) / max(nb, 1e-30)
+        diffs[k] = float(torch.linalg.norm((a - b).double())) / max(nb, 1e-30)
+        auto[k] = float(torch.linalg.norm((a - w).double())) / max(float(torch.linalg.norm(w.double())), 1e-30)
+    dummy_ok = bool(torch.equal(got[-1], g[:, :2].reshape(c, n, 2)))
+    with torch.no_grad():
+        l1 = dict(kernels.LAUNCHES)
+        ppk.project_pack(*args(case), alive=case["alive"], **kw)
+        render_launches = {k: kernels.LAUNCHES[k] - l1[k] for k in ("project_pack_fwd", "project_pack_bwd")}
+    res = dict(tag=tag, n=n, cameras=c, radii_equal=same_r, extents_equal=same_e, max_int_diff=dr,
+               table_err=terr, table_err_by_column=col_err, table_abs_err=tabs, norm_gap=gaps, diff=diffs,
+               vs_autograd=auto, grad_abs_err=gabs, launches=launched, no_grad_launches=render_launches)
+    if timed:
+        inp = ppk._Inputs(case["means"], case["quats"], case["scales"], case["opacities"], case["colors"],
+                          case["viewmats"], case["Ks"], mask, case["alive"],
+                          dict(kw, far_plane=1e10, radius_clip=0.0))
+        res["k4_ms"] = min(cuda_ms(lambda: ppk.project_pack_fwd(inp, W, H), 20) for _ in range(2))
+        res["k5_ms"] = min(cuda_ms(lambda: ppk.project_pack_bwd(inp, g, W, H, pose), 20) for _ in range(2))
+        with torch.no_grad():
+            res["plain_fwd_ms"] = cuda_ms(
+                lambda: ppk.project_pack_plain(*args(case), alive=case["alive"], **kw), 5)
+        tp2 = ppk.project_pack_plain(*args(lp), alive=case["alive"], **kw)[0]
+        res["plain_bwd_ms"] = cuda_ms(
+            lambda: torch.autograd.grad((tp2 * g).sum(), [lp[k] for k in names], retain_graph=True), 5)
+        active = 0 if case["sh_degree"] is None else (sh_active or 16)
+        colours = 0 if case["sh_degree"] is not None else case["colors"].numel()
+        fwd_b, bwd_b = pp_bytes(n, c, active, 16, colours)
+        res["k4_bound_ms"], res["k5_bound_ms"] = fwd_b / 3.35e9, bwd_b / 3.35e9
+        res["k4_bytes"], res["k5_bytes"] = fwd_b, bwd_b
+    log(f"  {tag}: " + json.dumps(res, default=lambda x: round(x, 9) if isinstance(x, float) else str(x)))
+    fails = []
+    if same_r < 0.99999 or same_e < 0.99999 or dr > 1:
+        fails.append(f"radii / extents equal on {same_r:.7f} / {same_e:.7f}, off by up to {dr}")
+    if not terr <= 1e-5:
+        fails.append(f"table off by {terr:.3e} of max(1, |x|)")
+    bad = {k: v for k, v in gaps.items() if not v < 1e-5}
+    if bad:
+        fails.append(f"gradient norm gaps {bad}")
+    for against, dist in (("project_pack_bwd_plain", diffs), ("autograd", auto)):
+        bad = {k: v for k, v in dist.items() if not v < PP_GRAD_RTOL}
+        if bad:
+            fails.append(f"gradients off {against} by {bad} of its norm")
+    if not dummy_ok:
+        fails.append("the means2d tap's gradient is not dtable[:, 0:2]")
+    if launched != {"project_pack_fwd": 1, "project_pack_bwd": 1} or render_launches != {
+            "project_pack_fwd": 1, "project_pack_bwd": 0}:
+        fails.append(f"launches {launched} with gradients, {render_launches} without")
+    if fails:
+        raise RuntimeError(f"phase 2b, {tag}: " + "; ".join(fails))
+    return res
+
+
+def project_pack_checks(dev):
+    """Phase 2b: K4 and K5 at the train cells' shapes, then the edges of each
+    camera model, colour mode, camera count and the viewmats' gradient."""
+    import torch
+
+    out = []
+    garden = project_pack_case(dev, **PP_GARDEN)
+    out.append(check_project_pack(dev, garden, "garden, SH degree 0 active", sh_active=1, timed=True))
+    out.append(check_project_pack(dev, garden, PP_REPORTED, sh_active=16, timed=True))
+    del garden
+    torch.cuda.empty_cache()
+    small = dict(n=100_000, width=1296, height=840)
+    out.append(check_project_pack(dev, project_pack_case(dev, c=2, **small), "pinhole, antialiased, 2 cameras, pose",
+                                  antialiased=True, sh_active=9, pose=True))
+    out.append(check_project_pack(dev, project_pack_det_case(dev), "pinhole, eps2d -0.3 (det <= 0)",
+                                  eps2d=-0.3, sh_active=4))
+    out.append(check_project_pack(dev, project_pack_case(dev, camera_model="ortho", colors="rgb", **small),
+                                  "ortho, colours [N, 3]", camera_model="ortho"))
+    out.append(check_project_pack(dev, project_pack_case(dev, c=2, camera_model="fisheye", colors="rgb_per_camera",
+                                                         **small),
+                                  "fisheye, antialiased, colours [C, N, 3], pose", camera_model="fisheye",
+                                  antialiased=True, pose=True))
+    out.append(check_project_pack(dev, project_pack_case(dev, camera_model="fisheye", **small),
+                                  "fisheye, classic, SH degree 3", camera_model="fisheye", sh_active=16))
+    case = project_pack_case(dev, **small)
+    case.update(colors=case["colors"][:, :4].contiguous(), sh_degree=1)
+    out.append(check_project_pack(dev, case, "pinhole, SH degree 1 with its 4 coefficients only"))
+    return out
+
+
 # ------------------------------------------------------------------ phase 3
 
 
@@ -936,7 +1182,8 @@ def main_path(ctx, warm=3, timed=20, tag="main path"):
     launches = dict(kernels.LAUNCHES)
 
     steps = warm + timed
-    want = dict(composite_fwd=steps, composite_bwd=steps, scan_probe=1)
+    want = dict(composite_fwd=steps, composite_bwd=steps, scan_probe=1, project_pack_fwd=steps,
+                project_pack_bwd=steps)
     for name in KERNELS:
         if launches.get(name, 0) != want[name]:
             raise RuntimeError(f"{tag}: {name} launched {launches.get(name, 0)} times in {steps} steps, "
@@ -1029,7 +1276,8 @@ def profile_window(ctx, step_ms, nsteps=3):
     if busy_ms <= 0:  # a measurement gap, not a fault of the path
         log("  profiler saw no device time here; the CUDA-event phase times above stand")
         return
-    log(f"  profiler ({nsteps} steps): device busy {busy_ms:.3f} ms/step; idle share "
+    log(f"  profiler ({nsteps} steps): {sum(r[1] for r in rows)} kernels/step; device busy {busy_ms:.3f} ms/step; "
+        f"idle share "
         f"{max(0.0, 1 - busy_ms / step_ms):.3f} of the unprofiled {step_ms:.3f} ms step "
         f"({max(0.0, 1 - busy_ms / wall_ms):.3f} of the profiled {wall_ms:.3f} ms); "
         f"top kernels by device time:")
@@ -1223,7 +1471,7 @@ def launch_floor(dev, launches=100):
     return res
 
 
-def kernel_report(ctx, launches, scan_err):
+def kernel_report(ctx, launches, scan_err, pp):
     from gs_init_tpu_torch.ops import rasterize as prast
 
     fargs, bargs = capture_inputs(ctx)
@@ -1276,7 +1524,8 @@ def kernel_report(ctx, launches, scan_err):
         f"operations forward {fwd_ops}, backward {bwd_ops}")
 
     def entry(name, err, ms, plain_ms, nbytes, ops):
-        tb, to = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_FP32_FLOPS * 1e3
+        # ops None: not counted (K4 and K5, whose bytes bound them by ~15x).
+        tb, to = nbytes / PEAK_BYTES_PER_S * 1e3, (ops or 0) / PEAK_FP32_FLOPS * 1e3
         return dict(
             name=name, **KERNELS[name], launches=launches[name], max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=max(tb, to), bound_by="bytes" if tb > to else "operations",
@@ -1289,7 +1538,16 @@ def kernel_report(ctx, launches, scan_err):
         # Two inputs read and two outputs written once; one add or one
         # multiply per element of each output.
         entry("scan_probe", scan_err, t["scan"], t["scan_plain"], 4 * x.numel() * 4, 2 * x.numel()),
+        # Phase 2b's 1M-slot case at SH degree 3 (not the flagship's inputs).
+        entry("project_pack_fwd", pp["table_abs_err"], pp["k4_ms"], pp["plain_fwd_ms"], pp["k4_bytes"], None),
+        entry("project_pack_bwd", pp["grad_abs_err"], pp["k5_ms"], pp["plain_bwd_ms"], pp["k5_bytes"], None),
     ]
+    # The gradients' largest entries are far above 1, so their absolute
+    # error is large where the relative one is not: the rows also give the
+    # table's error of max(1, |x|) and the largest relative L2 error of a
+    # gradient leaf against project_pack_bwd_plain.
+    rows[-2]["max_rel_err"] = pp["table_err"]
+    rows[-1]["max_rel_err"] = max(pp["diff"].values())
     for r in rows:
         log(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms), bound "
             f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({r['bound_ms'] / r['ms']:.3f} of the bound)")
@@ -5157,6 +5415,8 @@ def main():
     check_kernels("mid-size scene, tile 24", *compositor_case(dev, "mid", tile=24))
     check_kernels("deep stack, tile 8", *compositor_case(dev, "deep", tile=8))
     scan_err = check_scan_kernel(dev)
+    log("phase 2b: projection and pack, K4 and K5 against plain")
+    pp = next(r for r in project_pack_checks(dev) if r["tag"] == PP_REPORTED)
     step_card_vs_cpu(dev)
     step_card_vs_cpu(dev, aux_groups=True)
     mcmc_card_vs_cpu(dev)
@@ -5170,7 +5430,7 @@ def main():
     profile_window(ctx, float(np.median(step_ms)))
 
     log("phase 4: kernels on the flagship step's inputs")
-    rows = kernel_report(ctx, launches, scan_err)
+    rows = kernel_report(ctx, launches, scan_err, pp)
     launch_floor(dev)
     del ctx
     torch.cuda.empty_cache()

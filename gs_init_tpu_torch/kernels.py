@@ -10,9 +10,10 @@ and flags, so an edited source never loads a stale library.
 Every C entry point takes device pointers and the CUDA stream as
 ``c_void_p`` and returns ``cudaGetLastError()`` after its launch; ``check``
 raises on a non-zero code. ``LAUNCHES`` counts launches per kernel: the
-wrappers in ``ops/rasterize.py`` add one where they launch, and nowhere
-else, so a run can show that its path went through the kernels. With the
-tracer on (``trace.py``) ``build`` is the span ``kernels.build``.
+wrappers in ``ops/rasterize.py`` and ``ops/project_pack.py`` add one where
+they launch, and nowhere else, so a run can show that its path went
+through the kernels. With the tracer on (``trace.py``) ``build`` is the
+span ``kernels.build``.
 
 Nothing here runs at import time: the CPU tests import every module.
 """
@@ -36,7 +37,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # name -> (source file, argtypes of the C entry point of the same name)
 KERNELS = {
     "composite_fwd": (
@@ -56,7 +57,28 @@ KERNELS = {
         # x, m, sum, prod, n, p, stream
         [_P, _P, _P, _P, _I, _I, _P],
     ),
+    "project_pack_fwd": (
+        "project_pack_fwd.cu",
+        # means, quats, scales, opacities, colors, sh_mask, alive, viewmats,
+        # Ks, table, radii, extents, n, c, width, height, camera,
+        # antialiased, bases, coefs, color_stride, near, far, eps2d,
+        # radius_clip, stream
+        [_P] * 12 + [_I] * 9 + [_F] * 4 + [_P],
+    ),
+    "project_pack_bwd": (
+        "project_pack_bwd.cu",
+        # means, quats, scales, opacities, colors, sh_mask, viewmats, Ks,
+        # dtable, dmeans, dquats, dscales, dopacities, dcolors, dviewmats,
+        # n, c, width, height, camera, antialiased, bases, coefs,
+        # color_stride, near, eps2d, stream
+        [_P] * 15 + [_I] * 9 + [_F] * 2 + [_P],
+    ),
 }
+# Flags of one library beyond NVCC_FLAGS. K4's radii and extents feed the
+# binning, so its arithmetic rounds as the plain ops do: no contraction of
+# a multiply and an add into one FMA (explicit fmaf calls stay); K5
+# recomputes K4's intermediates, so it rounds them the same way.
+EXTRA_FLAGS = {"project_pack_fwd": ("-fmad=false",), "project_pack_bwd": ("-fmad=false",)}
 
 LAUNCHES = {name: 0 for name in KERNELS}
 # name -> ptxas/nvcc output of its build (registers, shared memory, spills)
@@ -81,9 +103,13 @@ def _nvcc() -> str:
     return path
 
 
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def _lib_path(name: str) -> Path:
     src, _ = KERNELS[name]
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags(name)).encode())
     for f in sorted(CSRC.glob("*.cuh")) + [CSRC / src]:
         h.update(f.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
@@ -101,7 +127,7 @@ def build(names=None) -> dict:
     for n in todo:
         out = _lib_path(n)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / KERNELS[n][0])]
+        cmd = [_nvcc(), *_flags(n), "-o", str(tmp), str(CSRC / KERNELS[n][0])]
         procs[n] = (
             subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True

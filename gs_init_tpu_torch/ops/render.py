@@ -1,7 +1,8 @@
 """High-level rasterization — port of ``gs_init_tpu/ops/render.py``.
 
-Projection -> SH colours -> tile binning -> tile compositor (the CUDA
-kernels on the card). The argument surface mirrors the JAX ``rasterize``.
+Projection, SH colours and the table pack (``ops/project_pack.py``: one
+CUDA kernel each way on the card) -> tile binning -> tile compositor (the
+CUDA kernels on the card). The argument surface mirrors the JAX ``rasterize``.
 ``impl="xla"`` composites with the dense oracle (``ops/rasterize_ref.py``)
 instead: no binning, no pair capacity (overflow 0), every gaussian against
 every pixel in chunks of ``pixel_chunk``.
@@ -17,11 +18,11 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .project_pack import camera_colors, project_pack
 from .projection import project_gaussians
 from .rasterize import render_tiles, unpack_tiles
 from .rasterize_ref import rasterize_reference
-from .sh import sh_to_color
-from .tiles import TileBinning, bin_gaussians, pack_table
+from .tiles import PACK_MX, PACK_MY, TileBinning, bin_gaussians
 
 
 class RenderInfo(NamedTuple):
@@ -66,49 +67,41 @@ def rasterize(
 
     Differentiate w.r.t. ``means2d_dummy`` (zeros) for screen-space
     positional gradients, and w.r.t. ``pair_dummy`` (zeros) for absgrad
-    (the dense oracle does not use ``pair_dummy``)."""
+    (the dense oracle does not use ``pair_dummy``). Both must be zeros: on
+    the card the kernels take only their gradients and never read them."""
     if impl not in ("auto", "pallas", "xla"):
         raise ValueError(f"unknown rasterizer impl {impl!r}")
     if render_mode not in ("RGB", "RGB+ED"):
         raise ValueError(f"unsupported render_mode {render_mode!r}")
 
-    proj = project_gaussians(
-        means, quats, scales, opacities, viewmats, Ks, width, height,
+    num_cams = viewmats.shape[0]
+    proj_kw = dict(
         near_plane=near_plane, far_plane=far_plane, eps2d=eps2d,
         antialiased=(rasterize_mode == "antialiased"), radius_clip=radius_clip,
         camera_model=camera_model, alive=alive,
     )
-    means2d = proj.means2d
-    if means2d_dummy is not None:
-        means2d = means2d + means2d_dummy
-
-    num_cams = viewmats.shape[0]
-    if sh_degree is not None:
-        # Camera centres from world->camera: c = -R^T t.
-        centers = -torch.einsum("cji,cj->ci", viewmats[:, :3, :3], viewmats[:, :3, 3])
-        dirs = means[None, :, :] - centers[:, None, :]
-        cam_colors = sh_to_color(
-            colors[None].expand((num_cams,) + colors.shape), dirs, sh_degree,
-            basis_mask=sh_mask,
-        )
-    elif colors.dim() == 2:
-        cam_colors = colors[None].expand((num_cams,) + colors.shape)
-    else:
-        cam_colors = colors
-
     if impl == "xla":
+        proj = project_gaussians(means, quats, scales, opacities, viewmats, Ks, width, height, **proj_kw)
+        means2d = proj.means2d if means2d_dummy is None else proj.means2d + means2d_dummy
+        cam_colors = camera_colors(means, colors, viewmats, sh_degree, sh_mask)
         color, alpha, depth_acc = rasterize_reference(
             proj._replace(means2d=means2d), cam_colors, width, height,
             pixel_chunk=pixel_chunk, tile_size=tile_size,
         )
+        radii, depths = proj.radii, proj.depths
         binning = None
         overflow = torch.zeros((), dtype=torch.int32, device=means.device)
     else:
-        binning = bin_gaussians(
-            means2d, proj.radii, proj.depths, width, height, tile_size, pair_capacity,
-            chunk=chunk_size, extents=proj.extents,
+        table, radii, extents, depths = project_pack(
+            means, quats, scales, opacities, colors, viewmats, Ks, width, height,
+            sh_degree=sh_degree, sh_mask=sh_mask, means2d_dummy=means2d_dummy,
+            **proj_kw,
         )
-        table = pack_table(means2d, proj.conics, proj.opacities, cam_colors, proj.depths)
+        means2d = table[:, PACK_MX : PACK_MY + 1].view(num_cams, -1, 2)
+        binning = bin_gaussians(
+            means2d, radii, depths, width, height, tile_size, pair_capacity,
+            chunk=chunk_size, extents=extents,
+        )
         num_tiles = num_cams * binning.num_tiles_x * binning.num_tiles_y
         want_absgrad = pair_dummy is not None
         if pair_dummy is None:
@@ -131,5 +124,5 @@ def rasterize(
         render = color
     if masks is not None:
         render = render * masks[..., None].to(render.dtype)
-    info = RenderInfo(radii=proj.radii, depths=proj.depths, overflow=overflow, binning=binning)
+    info = RenderInfo(radii=radii, depths=depths, overflow=overflow, binning=binning)
     return render, alpha[..., None], info

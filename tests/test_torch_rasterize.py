@@ -154,7 +154,17 @@ def test_cpu_tensors_take_the_plain_path():
     assert out.shape == (1, 8, TILE * TILE)
     assert float(out[0, prast.ROW_T].min()) == 1.0
     prast.check_scan("cpu")
-    assert kernels.LAUNCHES == {"composite_fwd": 0, "composite_bwd": 0, "scan_probe": 0}
+    from gs_init_tpu_torch.ops.project_pack import project_pack
+
+    eye = torch.eye(4)[None]
+    K = torch.tensor([[[10.0, 0.0, 2.0], [0.0, 10.0, 2.0], [0.0, 0.0, 1.0]]])
+    means = torch.tensor([[0.0, 0.0, 2.0]])
+    table, radii, _, _ = project_pack(means, torch.tensor([[1.0, 0.0, 0.0, 0.0]]), torch.full((1, 3), 0.1),
+                                      torch.tensor([0.9]), torch.zeros((1, 1, 3)), eye, K, 4, 4, sh_degree=0)
+    assert table.shape == (1, 16) and int(radii[0, 0]) > 0
+    assert kernels.LAUNCHES == {
+        "composite_fwd": 0, "composite_bwd": 0, "scan_probe": 0, "project_pack_fwd": 0, "project_pack_bwd": 0,
+    }
 
 
 def _jax_probe(x, m):
