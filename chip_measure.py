@@ -6,6 +6,7 @@ or read the port's tracer; not part of chip_smoke.py's run.
     python3 chip_measure.py growth-variants  # ~4 minutes on the card
     python3 chip_measure.py trace-probe --workload <cell> --seed <n> [options]
     python3 chip_measure.py span-cost        # ~1 minute on the card
+    python3 chip_measure.py sam-garden [--seed <n>]  # ~10 minutes on the card
 
 curve-witness: phase 11's 185-camera garden scene, a cache of the stub's
 predictions, and two one-rank runs of phase 13 (b)'s config from it
@@ -40,6 +41,15 @@ profiles, no sync sites).
 span-cost: host microseconds a span costs, off and on, by part (the flag
 check, ``record_function``, a pair of timing events, an event query), with
 the card idle and busy.
+
+sam-garden: the benchmark's garden-sam.init cell built by its harness (the
+seeded garden scene, Metric3D large and SAM ViT-H with the benchmark's random
+weights) on the card, then one ``pts_and_rgb_from_monocular_depth`` over
+every training image, as a user's init runs, with the port's tracer on:
+seconds an image, the host's resident memory before each image and after the
+call, the card's peak memory, the images that failed (the call goes on image
+by image past a failure) and the tracer's report. Writes
+``results/sam-garden/sam-garden-<seed>.json``; ~10 minutes on the card.
 """
 import argparse
 import json
@@ -406,14 +416,111 @@ def span_cost(dev) -> None:
     trace.reset()
 
 
+def rss_bytes() -> int:
+    """This process's resident set, from /proc/self/status."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def sam_garden(argv) -> int:
+    """The readings of sam-garden (see the module's doc); returns the number
+    of images that failed."""
+    ap = argparse.ArgumentParser(prog="chip_measure.py sam-garden")
+    ap.add_argument("--seed", type=int, default=2654435769)
+    opts = ap.parse_args(argv)
+    from benchmark.harness import common
+
+    common.cache_env()
+    import numpy as np
+    import torch
+
+    from benchmark.harness.init import build, chunk_parser
+    from benchmark.harness.init_sam import sam_generator
+    from gs_init_tpu_torch import trace
+    from gs_init_tpu_torch.mdi import init as pinit
+
+    dev = torch.device("cuda", 0)
+    torch.set_num_threads(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cell, config, traffic = common.find_cell(common.benchmark_spec(), "garden-sam.init")
+    args = argparse.Namespace(seed=opts.seed, trace=0, control=None, calibrate=False)
+    t = time.perf_counter()
+    _, cfg, parser, model, _ = build(args, cell, config, traffic, dev, {})
+    sam_generator(cfg, config, opts.seed, dev)
+    setup_s = time.perf_counter() - t
+    n = len(parser.split_indices("train"))
+    view = chunk_parser(parser, range(n))
+    rss, starts, failed = [], [], []
+
+    class Watched:  # the predictor, with the host's memory before each image
+        def predict_depth_batch(self, images, intrinsics):
+            rss.append(rss_bytes())
+            starts.append(time.perf_counter())
+            return model.predict_depth_batch(images, intrinsics)
+
+    real_align = pinit.align_depth
+
+    def align_depth(*a, **kw):  # an image that fails is recorded and left out, as a skipped one
+        try:
+            return real_align(*a, **kw)
+        except Exception as e:  # noqa: BLE001 - any failure of one image is what this records
+            failed.append(dict(image=len(starts) - 1, error=repr(e)[:500]))
+            h, w = a[0].shape
+            return np.full((h, w), -42.0, np.float32), np.zeros((h, w), bool)
+
+    pinit.align_depth = align_depth
+    torch.cuda.reset_peak_memory_stats(dev)
+    trace.enable(dev)
+    trace.reset()
+    per_image = []
+    t0 = time.perf_counter()
+    try:
+        pts, _ = pinit.pts_and_rgb_from_monocular_depth(cfg, view, model=Watched(), device=dev, per_image=per_image)
+    finally:
+        pinit.align_depth = real_align
+    torch.cuda.synchronize(dev)
+    total_s = time.perf_counter() - t0
+    rep = trace.report()
+    trace.disable()
+    res = dict(
+        seed=opts.seed, images=n, setup_s=setup_s, total_s=total_s, s_per_image=total_s / n,
+        points=len(pts), rss_before_image=rss, rss_after=rss_bytes(), image_start_s=[s - t0 for s in starts],
+        per_image=[dict(seconds=p["seconds"], stages=p["stages"], align_parts=p["align_parts"]) for p in per_image],
+        peak_device_bytes=int(torch.cuda.max_memory_allocated(dev)), failed=failed, trace=rep, card=cs.card_line())
+    out = os.path.join("results", "sam-garden")
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, f"sam-garden-{opts.seed}.json"), "w") as f:
+        json.dump(res, f)
+    gib = 2.0**30
+    after = lambda i: rss[i] if i < len(rss) else res["rss_after"]  # noqa: E731 - before image i is after i - 1
+    cs.log(f"sam-garden: {n} images in {total_s:.1f} s ({total_s / n:.3f} s an image), set-up {setup_s:.1f} s; "
+           f"host RSS after image 10 {after(10) / gib:.3f} GiB, after image {n} {res['rss_after'] / gib:.3f} GiB; "
+           f"card peak {res['peak_device_bytes'] / gib:.2f} GiB; {len(failed)} failed; {len(pts)} points")
+    spans = {k: {kk: v[kk] for kk in ("n", "host_ms", "device_ms")} for k, v in rep["spans"].items()}
+    cs.log("SPANS " + json.dumps(spans))
+    cs.log("COUNTERS " + json.dumps(rep["counters"]))
+    return len(failed)
+
+
 def main(argv):
     import torch
 
-    cmds = ("curve-witness", "growth-variants", "trace-probe", "span-cost")
-    if not argv or argv[0] not in cmds or (argv[0] != "trace-probe" and len(argv) != 1):
+    cmds = ("curve-witness", "growth-variants", "trace-probe", "span-cost", "sam-garden")
+    if not argv or argv[0] not in cmds or (argv[0] not in ("trace-probe", "sam-garden") and len(argv) != 1):
         print(__doc__, file=sys.stderr)
         return 2
     t0 = time.perf_counter()
+    if argv[0] == "sam-garden":
+        if not torch.cuda.is_available():
+            print("chip_measure.py sam-garden needs a CUDA card", file=sys.stderr)
+            return 2
+        failed = sam_garden(argv[1:])
+        cs.log(f"{argv[0]}: {time.perf_counter() - t0:.1f} s")
+        return 1 if failed else 0
     if argv[0] == "trace-probe":
         opts = probe_args(argv[1:])
         if opts.device == "cuda" and not torch.cuda.is_available():

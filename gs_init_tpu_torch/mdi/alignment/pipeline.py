@@ -8,6 +8,8 @@ borders are left out of the fits, and each region is aligned on its own.
 The output starts at the INVALID sentinel (-42) and is written per region;
 a region with too few points stays invalid and is masked out downstream.
 Host orchestration, once per image at init; the fits run on ``device``.
+With the tracer on, counters ``init.regions`` (regions after the merge) and
+``init.regions_dropped`` (those left invalid) add up over the images.
 """
 from __future__ import annotations
 
@@ -117,11 +119,14 @@ def align_depth(
     )
     fit_valid = valid & deadzone[ys, xs]
     min_pts = max(acfg.ransac.sample_size + 1, 4)
-    for r in np.unique(labels):
+    regions = np.unique(labels)
+    trace.count("init.regions", len(regions))
+    for r in regions:
         region_valid = fit_valid & (pt_labels == r)
         sel = labels == r
         if region_valid.sum() < min_pts:
             _LOGGER.debug("region %d dropped (%d pts)", r, region_valid.sum())
+            trace.count("init.regions_dropped")
             continue
         a = _align_region(
             pred_depth, pred_at, sfm_depth, sfm_pix, region_valid, acfg.method, **region

@@ -16,9 +16,18 @@ The networks run on ``device`` (the card by default); the resizes are
 NMS and painting are numpy, once per image at init. Without a checkpoint
 (``sam_vit_*`` under ``$GS_TPU_CHECKPOINT_DIR`` or ``~/.cache/gs_init_tpu``)
 the generator raises unless random weights are allowed.
+
+With the tracer on (``trace.py``): each ``generate`` call is span
+``sam.generate``, around the encoder's ``sam.encode`` and each batch's
+``sam.decode`` (``models/sam.py``); ``sam.filter`` runs from the first copy
+to the host to the kept masks at full size, and ``sam.paint`` over the
+painting and its postprocess. Counters: ``sam.prompts`` (point prompts),
+``sam.masks_kept`` (masks returned) and ``sam.host_bytes`` (bytes copied
+from the device to the host).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import logging
 import os
@@ -27,6 +36,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import trace
 from ..device import DeviceLike, resolve_device
 from ..models.common import build, full_fp32, resize
 from ..models.sam import Sam, init_random_sam_
@@ -72,6 +82,13 @@ def find_sam_checkpoint(variant: str) -> Optional[str]:
                 if "sam" in n.lower() and variant.replace("_", "") in n.replace("_", ""):
                     return os.path.join(d, n)
     return None
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """``t`` as numpy on the host, its bytes counted as ``sam.host_bytes``."""
+    a = t.cpu().numpy()
+    trace.count("sam.host_bytes", a.nbytes)
+    return a
 
 
 def _box_nms(boxes, iou, thresh: float):
@@ -141,6 +158,7 @@ class SamMaskGenerator:
             _LOGGER.warning("SAM running with RANDOM weights (explicitly allowed): masks are not meaningful")
         self.net.to(self.device).eval()
 
+    @trace.spanned("sam.generate")
     @torch.inference_mode()
     def generate(self, image_rgb: np.ndarray) -> list:
         """image_rgb: [H, W, 3] uint8 or float. Returns a list of dicts with
@@ -163,51 +181,57 @@ class SamMaskGenerator:
         gx = (np.arange(pps) + 0.5) / pps * nw
         gy = (np.arange(pps) + 0.5) / pps * nh
         pts = np.stack(np.meshgrid(gx, gy, indexing="xy"), -1).reshape(-1, 2)
-
+        trace.count("sam.prompts", len(pts))
         out_masks, out_iou, out_stab = [], [], []
         bsz = self.points_per_batch
         t, o = MASK_THRESHOLD, self.stability_offset
-        for i in range(0, len(pts), bsz):
-            batch = pts[i : i + bsz]
-            pb = np.pad(batch, ((0, bsz - len(batch)), (0, 0)))
-            points = torch.as_tensor(pb, dtype=torch.float32, device=dev)[:, None, :]
-            # A padding not-a-point (label -1) after each point prompt, as
-            # segment_anything's prompt encoder appends without a box.
-            points = torch.cat([points, torch.zeros_like(points)], dim=1)
-            labels = torch.tensor([[1, -1]] * bsz, dtype=torch.int32, device=dev)
-            with full_fp32():
-                sparse, no_mask = net.prompt_encoder(points, labels)
-                masks, iou = net.mask_decoder(embed, dense_pe, sparse, no_mask)
-            # Multimask output: tokens 1..3, not the single-mask token 0.
-            masks, iou = masks[: len(batch), 1:], iou[: len(batch), 1:]
-            hi = (masks > t + o).sum(dim=(-2, -1)).float()
-            lo = (masks > t - o).sum(dim=(-2, -1)).float()
-            out_masks.append(masks.cpu().numpy())
-            out_iou.append(iou.cpu().numpy())
-            out_stab.append((hi / torch.clamp(lo, min=1.0)).cpu().numpy())
+        # Span sam.filter runs from the first copy to the host to the kept
+        # masks at full size.
+        with contextlib.ExitStack() as filtering:
+            for i in range(0, len(pts), bsz):
+                batch = pts[i : i + bsz]
+                pb = np.pad(batch, ((0, bsz - len(batch)), (0, 0)))
+                points = torch.as_tensor(pb, dtype=torch.float32, device=dev)[:, None, :]
+                # A padding not-a-point (label -1) after each point prompt, as
+                # segment_anything's prompt encoder appends without a box.
+                points = torch.cat([points, torch.zeros_like(points)], dim=1)
+                labels = torch.tensor([[1, -1]] * bsz, dtype=torch.int32, device=dev)
+                with full_fp32():
+                    sparse, no_mask = net.prompt_encoder(points, labels)
+                    masks, iou = net.mask_decoder(embed, dense_pe, sparse, no_mask)
+                # Multimask output: tokens 1..3, not the single-mask token 0.
+                masks, iou = masks[: len(batch), 1:], iou[: len(batch), 1:]
+                hi = (masks > t + o).sum(dim=(-2, -1)).float()
+                lo = (masks > t - o).sum(dim=(-2, -1)).float()
+                if i == 0:
+                    filtering.enter_context(trace.span("sam.filter", device=False))
+                out_masks.append(_to_host(masks))
+                out_iou.append(_to_host(iou))
+                out_stab.append(_to_host(hi / torch.clamp(lo, min=1.0)))
 
-        side = S // 16 * 4
-        masks = np.concatenate(out_masks).reshape(-1, side, side)
-        iou = np.concatenate(out_iou).reshape(-1)
-        stab = np.concatenate(out_stab).reshape(-1)
-        keep = (iou > self.pred_iou_thresh) & (stab > self.stability_score_thresh)
-        masks, iou, stab = masks[keep], iou[keep], stab[keep]
+            side = S // 16 * 4
+            masks = np.concatenate(out_masks).reshape(-1, side, side)
+            iou = np.concatenate(out_iou).reshape(-1)
+            stab = np.concatenate(out_stab).reshape(-1)
+            keep = (iou > self.pred_iou_thresh) & (stab > self.stability_score_thresh)
+            masks, iou, stab = masks[keep], iou[keep], stab[keep]
 
-        lh, lw = int(round(nh / 4)), int(round(nw / 4))  # the valid region at low resolution
-        boxes = []
-        for m in masks:
-            ys, xs = np.nonzero(m[:lh, :lw] > MASK_THRESHOLD)
-            boxes.append((xs.min(), ys.min(), xs.max(), ys.max()) if len(xs) else None)
-        results = []
-        for ix in _box_nms(boxes, iou, self.box_nms_thresh):
-            low = torch.as_tensor(np.ascontiguousarray(masks[ix][:lh, :lw]), device=dev)
-            full = (resize(low, (h, w), "bilinear") > MASK_THRESHOLD).cpu().numpy()
-            area = int(full.sum())
-            if area == 0:
-                continue
-            results.append(dict(segmentation=full, area=area, predicted_iou=float(iou[ix]),
-                                stability_score=float(stab[ix])))
-        return results
+            lh, lw = int(round(nh / 4)), int(round(nw / 4))  # the valid region at low resolution
+            boxes = []
+            for m in masks:
+                ys, xs = np.nonzero(m[:lh, :lw] > MASK_THRESHOLD)
+                boxes.append((xs.min(), ys.min(), xs.max(), ys.max()) if len(xs) else None)
+            results = []
+            for ix in _box_nms(boxes, iou, self.box_nms_thresh):
+                low = torch.as_tensor(np.ascontiguousarray(masks[ix][:lh, :lw]), device=dev)
+                full = _to_host(resize(low, (h, w), "bilinear") > MASK_THRESHOLD)
+                area = int(full.sum())
+                if area == 0:
+                    continue
+                results.append(dict(segmentation=full, area=area, predicted_iou=float(iou[ix]),
+                                    stability_score=float(stab[ix])))
+            trace.count("sam.masks_kept", len(results))
+            return results
 
 
 def create_segmentation(masks: list, image_shape, degenerate_mask_thresh: float = 0.9) -> np.ndarray:
@@ -306,8 +330,9 @@ def segment_depth_sam(
     if seg_cfg.sam_use_normals and normals is not None:
         nrgb = np.round(127.5 * (np.asarray(normals) + 1.0)).astype(np.uint8)
         masks = gen.generate(nrgb) + masks
-    seg = create_segmentation(masks, depth.shape, seg_cfg.sam_degenerate_mask_thresh)
-    return postprocess_segmentation(
-        seg, expansion_radius=seg_cfg.sam_expansion_radius,
-        tiny_region_area_fraction=seg_cfg.sam_tiny_region_area_fraction,
-    )
+    with trace.span("sam.paint", device=False):
+        seg = create_segmentation(masks, depth.shape, seg_cfg.sam_degenerate_mask_thresh)
+        return postprocess_segmentation(
+            seg, expansion_radius=seg_cfg.sam_expansion_radius,
+            tiny_region_area_fraction=seg_cfg.sam_tiny_region_area_fraction,
+        )

@@ -18,6 +18,9 @@ loads by name (``mdi/predictors/sam_convert.py``).
   2), transposed-conv upscaling, per-token hypernetwork MLPs, the IoU head.
   Its attention has no bias and goes to ``F.scaled_dot_product_attention``.
 
+With the tracer on (``trace.py``), each encoder pass is span ``sam.encode``
+and each decoder call span ``sam.decode``, both with CUDA events.
+
 Images and embeddings are channels-first ([B, 3, S, S] in, [B, 256, S/16,
 S/16] out); the JAX package's are channels-last.
 """
@@ -30,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import trace
 from .common import init_random_, jax_resize_matrix, resize
 
 
@@ -177,6 +181,7 @@ class SamImageEncoder(nn.Module):
             LayerNorm2d(out_chans),
         )
 
+    @trace.spanned("sam.encode")
     def forward(self, x):
         """x: [B, 3, S, S] normalised -> [B, out_chans, S/16, S/16]."""
         x = self.patch_embed.proj(x).permute(0, 2, 3, 1)
@@ -320,6 +325,7 @@ class SamMaskDecoder(nn.Module):
         self.output_hypernetworks_mlps = nn.ModuleList([MLP((c, c, c, c // 8)) for _ in range(t)])
         self.iou_prediction_head = MLP((c, iou_head_hidden, iou_head_hidden, t))
 
+    @trace.spanned("sam.decode")
     def forward(self, image_embed, image_pe, sparse_prompt, dense_embed):
         """image_embed [B or 1, C, h, w]; image_pe [h, w, C]; sparse_prompt
         [B, P, C]; dense_embed [C] (no mask). Returns (masks [B, T, 4h, 4w],
