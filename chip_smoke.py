@@ -43,6 +43,17 @@ no result line.
    once a render, K5 once a backward; both timed beside their byte bounds
    and the plain versions, and phase 4's kernel rows take the degree-3
    case's times.
+2c. SSIM (ops/ssim.py): K6 and K7 against the plain twins at the train
+   cells' images (1296x840x3), on a 4-channel render's [..., :3] view,
+   and at odd sides (1301x843, a batch of two at 36x40, the 11x11
+   minimum): the blurred maps and the gradient equal to the bit (the
+   gradient also to autograd's through the plain ops), the mean within
+   1e-6 of its value, the same bits on a second call, one launch
+   each a call with a gradient and one K6 without (no maps written). K6
+   (with and without the maps) and K7 timed at the garden shape, the
+   minimum of two rounds of 20 launches, beside their byte and operation
+   bounds, the twins' time and autograd through the plain ops (the path
+   they replaced); phase 4's kernel rows take these.
 3. The main path: the train step at bench.py's flagship scenario (300k
    gaussians, capacity 393216, 1296x840, tile 32, chunk 128, SH degree 3,
    L1 + SSIM, Adam, densification statistics), a step function built
@@ -60,7 +71,7 @@ no result line.
    operations bound and the copy's time (the launch and copy floor).
    The `kernels` line's rows for K4 and K5 take phase 2b's 1M-slot SH
    degree 3 case (times, plain times, byte bounds, largest absolute and
-   relative errors) and phase 3's launch counts.
+   relative errors) and phase 3's launch counts; K6 and K7 phase 2c's.
 3b. The flagship under the mcmc preset (init opacity 0.5, scale 0.1,
    opacity and scale regularisers), a relocation every 10 steps from step
    0 (2 in the 20 timed steps): step, relocation and noise times, device
@@ -321,6 +332,16 @@ KERNELS = {
         route="cuda",
         source="gs_init_tpu_torch/csrc/project_pack_bwd.cu",
         replaces="none (XLA fused their VJP)",
+    ),
+    "ssim_fwd": dict(
+        route="cuda",
+        source="gs_init_tpu_torch/csrc/ssim_fwd.cu",
+        replaces="none (XLA fused gs_init_tpu/ops/ssim.py's blur)",
+    ),
+    "ssim_bwd": dict(
+        route="cuda",
+        source="gs_init_tpu_torch/csrc/ssim_bwd.cu",
+        replaces="none (XLA fused its VJP)",
     ),
 }
 
@@ -1049,6 +1070,122 @@ def project_pack_checks(dev):
     return out
 
 
+# ----------------------------------------------------------------- phase 2c
+
+# The train cells' images: garden at data_factor 4, batch 1, RGB.
+SSIM_GARDEN = (1, 840, 1296, 3)
+SSIM_ODD = [(1, 843, 1301, 3), (2, 40, 36, 3), (1, 11, 11, 3)]
+
+
+def ssim_images(shape, seed=0):
+    """A smooth texture with noise and a flat patch (where the variance
+    terms cancel), and a noisier target; float32 numpy in [0, 1]."""
+    rng = np.random.default_rng(seed)
+    b, h, w, c = shape
+    yy, xx = np.mgrid[0:h, 0:w]
+    a = np.stack([0.5 + 0.3 * np.sin(xx / (5.0 + ch)) * np.cos(yy / 7.0) for ch in range(c)], -1)
+    a = np.broadcast_to(a, shape) + rng.normal(scale=0.02, size=shape)
+    a[:, : h // 2, : w // 3] = 0.5
+    target = np.clip(a + rng.normal(scale=0.05, size=shape), 0, 1)
+    return np.clip(a, 0, 1).astype(np.float32), target.astype(np.float32)
+
+
+def check_ssim(dev, x0, x1, tag, timed=False):
+    """K6 and K7 against the twins on one pair of images (phase 2c);
+    returns the measurements."""
+    import torch
+    from gs_init_tpu_torch import kernels
+    from gs_init_tpu_torch.ops import ssim as S
+
+    w = S._gaussian_window()
+    c1, c2 = 0.01**2, 0.03**2
+    grad = torch.tensor(1.7, device=dev)
+    want_v, want_m = S.ssim_fwd_plain(x0, x1, c1, c2, w, True)
+    want_g = S.ssim_bwd_plain(grad, x0, x1, want_m, c1, c2, w)
+    xa = x0.detach().clone().requires_grad_(True)
+    (auto_g,) = torch.autograd.grad(1.7 * S.ssim_fwd_plain(xa, x1, c1, c2, w, False)[0], xa)
+    l0 = dict(kernels.LAUNCHES)
+    runs = []
+    for _ in range(2):
+        v, m = S.ssim_fwd(x0, x1, c1, c2, w, True)
+        runs.append((v, m, S.ssim_bwd(grad, x0, x1, m, c1, c2, w)))
+    torch.cuda.synchronize()
+    launched = {k: kernels.LAUNCHES[k] - l0[k] for k in ("ssim_fwd", "ssim_bwd")}
+    (v, m, g), (v2, m2, g2) = runs
+    maps_unequal = int((m != want_m).sum())
+    grad_unequal, autograd_unequal = int((g != want_g).sum()), int((g != auto_g).sum())
+    grad_err = float((g - want_g).abs().max() / want_g.abs().max())
+    value_err = abs(float(v) - float(want_v)) / abs(float(want_v))
+    repeat = bool(torch.equal(v, v2) and torch.equal(g, g2) and torch.equal(m, m2))
+    l1 = dict(kernels.LAUNCHES)
+    with torch.no_grad():  # as the Runner's eval: an image that needs a gradient, none asked for
+        S.ssim(x0.detach().requires_grad_(True), x1)
+    eval_launches = {k: kernels.LAUNCHES[k] - l1[k] for k in ("ssim_fwd", "ssim_bwd")}
+    res = dict(tag=tag, shape=list(x0.shape), strides=list(x0.stride()), value=float(v), value_err=value_err,
+               maps_unequal=maps_unequal, grad_unequal=grad_unequal, autograd_unequal=autograd_unequal,
+               grad_err=grad_err, grad_abs_err=float((g - want_g).abs().max()), repeat_equal=repeat,
+               launches=launched, eval_launches=eval_launches)
+    if timed:
+        from benchmark.counts.step_ops import OPS_LOSS_PER_PIXEL
+
+        b, h, wd, c = x0.shape
+        ho, wo = h - 10, wd - 10
+
+        def plain_path():  # what the step ran before K6 / K7: autograd through the plain ops
+            torch.autograd.grad(S.ssim_fwd_plain(xa, x1, c1, c2, w, False)[0], xa)
+
+        t = {}
+        for _ in range(2):  # two rounds, each the plain versions then the kernels
+            t.setdefault("autograd", []).append(cuda_ms(plain_path, 3))
+            t.setdefault("twin_fwd", []).append(cuda_ms(lambda: S.ssim_fwd_plain(x0, x1, c1, c2, w, True), 3))
+            t.setdefault("twin_bwd", []).append(cuda_ms(lambda: S.ssim_bwd_plain(grad, x0, x1, m, c1, c2, w), 3))
+            t.setdefault("k6", []).append(cuda_ms(lambda: S.ssim_fwd(x0, x1, c1, c2, w, True), 20))
+            t.setdefault("k6_eval", []).append(cuda_ms(lambda: S.ssim_fwd(x0, x1, c1, c2, w, False), 20))
+            t.setdefault("k7", []).append(cuda_ms(lambda: S.ssim_bwd(grad, x0, x1, m, c1, c2, w), 20))
+        res.update({f"{k}_ms": float(np.min(v)) for k, v in t.items()})
+        image = b * h * wd * c * 4
+        maps = 5 * b * c * ho * wo * 4
+        res["k6_bytes"], res["k6_eval_bytes"], res["k7_bytes"] = 2 * image + maps, 2 * image, maps + 3 * image
+        res["k6_ops"] = OPS_LOSS_PER_PIXEL * b * h * wd * c
+        res["k7_ops"] = 2 * res["k6_ops"]
+        for k in ("k6", "k6_eval", "k7"):
+            ops = res["k7_ops"] if k == "k7" else res["k6_ops"]
+            tb, to = res[f"{k}_bytes"] / PEAK_BYTES_PER_S * 1e3, ops / PEAK_FP32_FLOPS * 1e3
+            res[f"{k}_bound_ms"], res[f"{k}_bound_by"] = max(tb, to), "bytes" if tb > to else "operations"
+            res[f"{k}_share"] = res[f"{k}_bound_ms"] / res[f"{k}_ms"]
+    log(f"  {tag}: " + json.dumps(res, default=lambda x: round(x, 9) if isinstance(x, float) else str(x)))
+    fails = []
+    if maps_unequal or grad_unequal or autograd_unequal:
+        fails.append(f"maps unequal at {maps_unequal} entries, the gradient at {grad_unequal} (largest gap "
+                     f"{grad_err} of the max), at {autograd_unequal} against autograd's")
+    if not value_err <= 1e-6:
+        fails.append(f"mean {float(v)!r} against {float(want_v)!r}")
+    if not repeat:
+        fails.append("a second call gave other bits")
+    if launched != {"ssim_fwd": 2, "ssim_bwd": 2} or eval_launches != {"ssim_fwd": 1, "ssim_bwd": 0}:
+        fails.append(f"launches {launched} for two calls, {eval_launches} without a gradient")
+    if fails:
+        raise RuntimeError(f"phase 2c, {tag}: " + "; ".join(fails))
+    return res
+
+
+def ssim_checks(dev):
+    """Phase 2c: K6 and K7 at the train cells' images (timed), on a
+    4-channel render's [..., :3] view and at odd shapes. Returns the timed
+    case's measurements."""
+    import torch
+
+    T = lambda x: torch.as_tensor(x, device=dev)
+    a, b = ssim_images(SSIM_GARDEN)
+    garden = check_ssim(dev, T(a), T(b), "garden 1296x840x3", timed=True)
+    render = torch.cat([T(a), torch.rand(SSIM_GARDEN[:3] + (1,), device=dev)], -1)
+    check_ssim(dev, render[..., :3], T(b), "garden, [..., :3] of a 4-channel render")
+    for shape in SSIM_ODD:
+        a, b = ssim_images(shape, seed=1)
+        check_ssim(dev, T(a), T(b), "x".join(str(v) for v in shape))
+    return garden
+
+
 # ------------------------------------------------------------------ phase 3
 
 
@@ -1183,7 +1320,7 @@ def main_path(ctx, warm=3, timed=20, tag="main path"):
 
     steps = warm + timed
     want = dict(composite_fwd=steps, composite_bwd=steps, scan_probe=1, project_pack_fwd=steps,
-                project_pack_bwd=steps)
+                project_pack_bwd=steps, ssim_fwd=steps, ssim_bwd=steps)
     for name in KERNELS:
         if launches.get(name, 0) != want[name]:
             raise RuntimeError(f"{tag}: {name} launched {launches.get(name, 0)} times in {steps} steps, "
@@ -1471,7 +1608,7 @@ def launch_floor(dev, launches=100):
     return res
 
 
-def kernel_report(ctx, launches, scan_err, pp):
+def kernel_report(ctx, launches, scan_err, pp, ss):
     from gs_init_tpu_torch.ops import rasterize as prast
 
     fargs, bargs = capture_inputs(ctx)
@@ -1548,6 +1685,13 @@ def kernel_report(ctx, launches, scan_err, pp):
     # gradient leaf against project_pack_bwd_plain.
     rows[-2]["max_rel_err"] = pp["table_err"]
     rows[-1]["max_rel_err"] = max(pp["diff"].values())
+    # Phase 2c's garden images; the plain time is the twins', and autograd
+    # through the plain ops (the path K6 / K7 replaced) is kept beside it.
+    for name, k, plain in (("ssim_fwd", "k6", "twin_fwd"), ("ssim_bwd", "k7", "twin_bwd")):
+        err = abs(ss["value"]) * ss["value_err"] if k == "k6" else ss["grad_abs_err"]
+        rows.append(entry(name, err, ss[f"{k}_ms"], ss[f"{plain}_ms"], ss[f"{k}_bytes"],
+                          ss["k7_ops" if k == "k7" else "k6_ops"]))
+        rows[-1]["autograd_pair_ms"] = ss["autograd_ms"]
     for r in rows:
         log(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms), bound "
             f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({r['bound_ms'] / r['ms']:.3f} of the bound)")
@@ -5417,6 +5561,8 @@ def main():
     scan_err = check_scan_kernel(dev)
     log("phase 2b: projection and pack, K4 and K5 against plain")
     pp = next(r for r in project_pack_checks(dev) if r["tag"] == PP_REPORTED)
+    log("phase 2c: SSIM, K6 and K7 against plain")
+    ss = ssim_checks(dev)
     step_card_vs_cpu(dev)
     step_card_vs_cpu(dev, aux_groups=True)
     mcmc_card_vs_cpu(dev)
@@ -5430,7 +5576,7 @@ def main():
     profile_window(ctx, float(np.median(step_ms)))
 
     log("phase 4: kernels on the flagship step's inputs")
-    rows = kernel_report(ctx, launches, scan_err, pp)
+    rows = kernel_report(ctx, launches, scan_err, pp, ss)
     launch_floor(dev)
     del ctx
     torch.cuda.empty_cache()

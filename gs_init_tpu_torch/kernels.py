@@ -10,9 +10,9 @@ and flags, so an edited source never loads a stale library.
 Every C entry point takes device pointers and the CUDA stream as
 ``c_void_p`` and returns ``cudaGetLastError()`` after its launch; ``check``
 raises on a non-zero code. ``LAUNCHES`` counts launches per kernel: the
-wrappers in ``ops/rasterize.py`` and ``ops/project_pack.py`` add one where
-they launch, and nowhere else, so a run can show that its path went
-through the kernels. With the tracer on (``trace.py``) ``build`` is the
+wrappers in ``ops/rasterize.py``, ``ops/project_pack.py`` and
+``ops/ssim.py`` add one where they launch, and nowhere else, so a run can
+show that its path went through the kernels. With the tracer on (``trace.py``) ``build`` is the
 span ``kernels.build``.
 
 Nothing here runs at import time: the CPU tests import every module.
@@ -73,12 +73,30 @@ KERNELS = {
         # color_stride, near, eps2d, stream
         [_P] * 15 + [_I] * 9 + [_F] * 2 + [_P],
     ),
+    "ssim_fwd": (
+        "ssim_fwd.cu",
+        # img0, img1, strides (host), window (host), maps, sums, out, nsums,
+        # b, h, w, c, c1, c2, stream
+        [_P] * 7 + [_I] * 5 + [_F] * 2 + [_P],
+    ),
+    "ssim_bwd": (
+        "ssim_bwd.cu",
+        # img0, img1, strides (host), window (host, reversed), maps, grad, dx,
+        # b, h, w, c, inv_count, c1, c2, stream
+        [_P] * 7 + [_I] * 4 + [_F] * 3 + [_P],
+    ),
 }
 # Flags of one library beyond NVCC_FLAGS. K4's radii and extents feed the
 # binning, so its arithmetic rounds as the plain ops do: no contraction of
 # a multiply and an add into one FMA (explicit fmaf calls stay); K5
-# recomputes K4's intermediates, so it rounds them the same way.
-EXTRA_FLAGS = {"project_pack_fwd": ("-fmad=false",), "project_pack_bwd": ("-fmad=false",)}
+# recomputes K4's intermediates, so it rounds them the same way. K6 / K7
+# round each product and sum of the blur, the formula and its backward on
+# its own, as the plain twins' torch ops do, so their maps and gradient
+# equal the twins'.
+EXTRA_FLAGS = {
+    name: ("-fmad=false",)
+    for name in ("project_pack_fwd", "project_pack_bwd", "ssim_fwd", "ssim_bwd")
+}
 
 LAUNCHES = {name: 0 for name in KERNELS}
 # name -> ptxas/nvcc output of its build (registers, shared memory, spills)

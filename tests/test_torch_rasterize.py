@@ -162,8 +162,13 @@ def test_cpu_tensors_take_the_plain_path():
     table, radii, _, _ = project_pack(means, torch.tensor([[1.0, 0.0, 0.0, 0.0]]), torch.full((1, 3), 0.1),
                                       torch.tensor([0.9]), torch.zeros((1, 1, 3)), eye, K, 4, 4, sh_degree=0)
     assert table.shape == (1, 16) and int(radii[0, 0]) > 0
+    from gs_init_tpu_torch.ops.ssim import ssim
+
+    img = torch.rand((1, 12, 13, 3), requires_grad=True)
+    torch.autograd.grad(ssim(img, torch.rand((1, 12, 13, 3))), img)
     assert kernels.LAUNCHES == {
         "composite_fwd": 0, "composite_bwd": 0, "scan_probe": 0, "project_pack_fwd": 0, "project_pack_bwd": 0,
+        "ssim_fwd": 0, "ssim_bwd": 0,
     }
 
 

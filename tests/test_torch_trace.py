@@ -136,7 +136,8 @@ def test_counters_add_on_the_host_and_on_the_device(tracer):
     rep = trace.report()
     assert rep["counters"] == {"a": 5, "b": 10, "c": 0.75}
     assert set(rep["launches"]) == {
-        "composite_fwd", "composite_bwd", "scan_probe", "project_pack_fwd", "project_pack_bwd",
+        "composite_fwd", "composite_bwd", "scan_probe", "project_pack_fwd", "project_pack_bwd", "ssim_fwd",
+        "ssim_bwd",
     }
     trace.reset()
     assert trace.report()["counters"] == {}
