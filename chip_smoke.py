@@ -456,8 +456,9 @@ def compositor_case(dev, kind, tile=None, seed=0):
     unless `tile` is given; returns the compositor's arguments and a random
     output cotangent."""
     import torch
+    from gs_init_tpu_torch.ops.project_pack import pack_table
     from gs_init_tpu_torch.ops.projection import project_gaussians
-    from gs_init_tpu_torch.ops.tiles import bin_gaussians, pack_table
+    from gs_init_tpu_torch.ops.tiles import bin_gaussians
 
     rng = np.random.default_rng(seed)
     if kind == "deep":
@@ -2670,6 +2671,9 @@ PRE_REFINE_RTOL = 2e-3
 # (d) Descriptors and image filters on the card against the CPU, within
 # LEFTOVER_RTOL of each output's max |value| (f32 sums in other orders).
 LEFTOVER_RTOL = 1e-5
+# (a), (b) Every step, one-card or sharded, projects and packs through
+# K4 / K5 and composites through K1 / K2, once each a step on each rank.
+STEP_KERNELS_9A = ("composite_fwd", "composite_bwd", "project_pack_fwd", "project_pack_bwd")
 MESHES_9B = (  # (name, n_data, n_gauss, bands, batch, witness)
     ("2x1 cameras", 2, 1, False, 2, "cameras"), ("1x2 gaussians", 1, 2, False, 1, None),
     ("2x2", 2, 2, False, 2, "cameras"), ("2x1 bands", 2, 1, True, 1, "bands"),
@@ -2910,7 +2914,7 @@ def one_rank_nccl(dev, data, timed=10):
             kernels.reset_launch_counts()
             g, a, s, aux, aux_opt, m = fn(g, a, s, AuxParams(), init_aux_opt(AuxParams()), b, step)
             torch.cuda.synchronize()
-            launches = {k: kernels.LAUNCHES[k] for k in ("composite_fwd", "composite_bwd")}
+            launches = {k: kernels.LAUNCHES[k] for k in STEP_KERNELS_9A}
             if name != "plain":
                 err = mesh_errors(step_outputs(g, a, s, m), ref, MESH1_RTOL)
                 log(f"  (a) {name} step on a one-rank NCCL group (mesh 1x1) vs make_train_step: loss "
@@ -2919,8 +2923,9 @@ def one_rank_nccl(dev, data, timed=10):
                     f"{err['adam_excess']:.3e} (<= 0); launches {json.dumps(launches)}")
                 if not mesh_ok(err, MESH1_RTOL):
                     raise RuntimeError(f"phase 9 (a): the one-rank {name} step disagrees with make_train_step")
-            if launches != dict(composite_fwd=1, composite_bwd=1):
-                raise RuntimeError(f"phase 9 (a): {name} step launched {launches}, not one K1 and one K2")
+            if launches != {k: 1 for k in STEP_KERNELS_9A}:
+                raise RuntimeError(f"phase 9 (a): {name} step launched {launches}, not one each of K1, K2, K4 "
+                                   f"and K5")
             ms = []
             for i in range(timed + 2):
                 ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -2979,7 +2984,7 @@ def shared_card_rank(rank, world, port, path, q):
             torch.cuda.reset_peak_memory_stats(dev)
             kernels.reset_launch_counts()
             g, a, s, aux, aux_opt, m = fn(g, a, s, AuxParams(), init_aux_opt(AuxParams()), b, step)
-            launches = {k: kernels.LAUNCHES[k] for k in ("composite_fwd", "composite_bwd")}
+            launches = {k: kernels.LAUNCHES[k] for k in STEP_KERNELS_9A}
             res = dict(launches=launches, pairs=int(m["pairs"]), overflow=int(m["overflow"]))
             whole = shard.global_state(g, a, s, mesh)
             if rank == 0:
@@ -3068,7 +3073,7 @@ def shared_card(path):
     log(f"  (b) four ranks on cuda:0 over gloo, {time.perf_counter() - t0:.1f} s with start-up; per-rank "
         f"times are shared-card figures (every rank on one H100), not scaling")
     failures = []
-    one = dict(composite_fwd=1, composite_bwd=1)
+    one = {k: 1 for k in STEP_KERNELS_9A}
     for i, (name, d, g, bands, batch, kind) in enumerate(MESHES_9B):
         per = [r[i] for r in ranks[: d * g]]
         err, wit, gap = per[0]["err"], per[0]["wit"], per[0]["gap"]

@@ -2,7 +2,7 @@
 // project_pack_bwd.cu): the cameras in shared memory, a gaussian's 3D
 // covariance, a camera's Jacobian and projected mean, the 2D covariance and
 // the SH bases, written to match gs_init_tpu_torch/ops/projection.py,
-// ops/sh.py and ops/tiles.py::pack_table operation for operation. Where
+// ops/sh.py and ops/project_pack.py::pack_table operation for operation. Where
 // torch's ops round each product and each sum on its own (K4 builds with
 // -fmad=false), so do these, in the same order: the radii and extents that
 // the binning reads then come out as the plain path's.

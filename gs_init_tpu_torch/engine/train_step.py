@@ -9,7 +9,9 @@ none, so it keeps none). PyTorch runs eagerly, so ``make_train_step`` only
 closes over the configuration; the step reads ``cfg.pair_capacity`` on
 every call, which lets the Runner retune it. The step's first call on a
 CUDA device runs the scan probe kernel once (``ops.rasterize.check_scan``),
-where the JAX step resolves ``_scan_mode``.
+where the JAX step resolves ``_scan_mode``. ``StepFrame`` is the setup
+before the render and the updates after the backward, which the sharded
+steps (``parallel/shard.py``) share.
 
 Optional groups, each one more optimiser group (``AuxParams``):
 - pose optimisation (``cfg.pose_opt``): per-image SE3 deltas on camtoworld;
@@ -20,6 +22,7 @@ Optional groups, each one more optimiser group (``AuxParams``):
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -108,16 +111,6 @@ def background(cfg, bkgd: Optional[torch.Tensor], c: int, device) -> Optional[to
     return None
 
 
-def appearance_rgb(cfg, app, sh0: torch.Tensor, means: torch.Tensor, c2w: torch.Tensor,
-                   image_ids: torch.Tensor, step: int) -> torch.Tensor:
-    """[C, N, 3] colours of the appearance MLP (``cfg.app_opt``): embedding
-    and feature residuals on the base colour logit sh0."""
-    dirs = view_directions(means, c2w)
-    active_deg = min(step // cfg.sh_degree_interval, cfg.sh_degree)
-    resid = appearance_colors(app, image_ids, dirs, active_deg, cfg.sh_degree)
-    return torch.sigmoid(resid + sh0[None, :, 0, :])
-
-
 def image_loss(cfg, la: AuxParams, batch: Batch, rendered, alpha, depth, depth_count=None):
     """The loss of a render, regularisers aside: the sampling mask
     (masked-out pixels keep their values but pass no gradient), the
@@ -163,23 +156,115 @@ def regulariser_loss(cfg, alive, opacities, scales, mean=torch.mean):
     return loss
 
 
-def update_aux(cfg, acfg: AdamConfig, aux: AuxParams, aux_opt: AuxOptState, agrads: AuxParams,
-               step: int) -> AuxOptState:
-    """Adam on the enabled aux groups, in place: the pose deltas at the
-    means' decayed rate, the appearance MLP, the bilateral grid at 2e-3."""
-    decay = np.float32(acfg.means_decay_gamma) ** np.float32(step)
-    if aux.pose is not None:
-        aux_opt.pose = simple_adam_update(
-            aux.pose, agrads.pose, aux_opt.pose,
-            lr=np.float32(cfg.pose_opt_lr) * decay, weight_decay=cfg.pose_opt_reg,
-        )
-    if aux.app is not None:
-        aux_opt.app = simple_adam_update(
-            aux.app, agrads.app, aux_opt.app, lr=cfg.app_opt_lr, weight_decay=cfg.app_opt_reg
-        )
-    if aux.grids is not None:
-        aux_opt.grids = simple_adam_update(aux.grids, agrads.grids, aux_opt.grids, lr=2e-3)
-    return aux_opt
+@dataclass
+class Frame:
+    """One step's inputs to its render, the leaves with gradients on
+    (``StepFrame.setup``)."""
+
+    lp: GaussianParams  # the gaussian leaves
+    la: AuxParams  # the aux groups' leaves
+    dummy: torch.Tensor  # [C, N, 2] zeros: the means2d tap
+    pair_dummy: Optional[torch.Tensor]  # [C*M, 2] zeros: the absgrad tap, or None
+    scales: torch.Tensor  # activated
+    opacities: torch.Tensor  # activated
+    viewmats: torch.Tensor  # [C, 4, 4] world->camera, the pose deltas applied
+    bkgd: Optional[torch.Tensor]  # [C, 3]
+    colors: torch.Tensor  # SH coefficients [N, K, 3] (with sh_degree) or colours [C, N, 3]
+    sh_degree: Optional[int]
+    sh_mask: Optional[torch.Tensor]  # [K] the SH schedule
+
+    def gradients(self, loss, taps):
+        """The gradients of ``loss``: (the gaussian leaves' in ``PARAM_NAMES``
+        order, the ``taps``', the aux leaves'), zeros where a leaf takes none
+        (shN when the appearance MLP replaces SH colours)."""
+        inputs = [getattr(self.lp, k) for k in PARAM_NAMES] + taps + aux_leaves(self.la)
+        grads = torch.autograd.grad(loss, inputs, allow_unused=True)
+        grads = [torch.zeros_like(x) if g is None else g for x, g in zip(inputs, grads)]
+        n = len(PARAM_NAMES)
+        return grads[:n], grads[n:n + len(taps)], grads[n + len(taps):]
+
+
+class StepFrame:
+    """What the one-card step and the sharded steps (``parallel/shard.py``)
+    share around their renders: the setup (``setup``) and the updates after
+    the backward (``update``). Each step function holds one."""
+
+    def __init__(self, cfg, acfg: AdamConfig, width: int, height: int):
+        self.cfg, self.acfg, self.width, self.height = cfg, acfg, width, height
+        self.use_absgrad = bool(getattr(cfg.strategy, "absgrad", False))
+        # MCMC relocation reads no screen-space statistics, so none are kept.
+        self.track_stats = not isinstance(cfg.strategy, MCMCStrategyConfig)
+        self.scan_checked = False
+
+    def setup(self, gstate: GaussianState, aux: AuxParams, batch: Batch, step: int,
+              bkgd: Optional[torch.Tensor], pair_tap: Optional[int], app_rows: Optional[slice] = None) -> Frame:
+        """The leaves with gradients on, the activation, the cameras, the
+        background and the colours' input. ``pair_tap``: the gaussians per
+        camera of the absgrad tap (None for none); ``app_rows``: the rows
+        of the appearance features that ``gstate`` holds (None for all)."""
+        cfg = self.cfg
+        p = gstate.params
+        dev = p.means.device
+        if dev.type == "cuda" and not self.scan_checked:
+            # The JAX step resolves its scan lowering (_scan_mode) when it
+            # is first traced; the port checks its scan kernel here.
+            check_scan(dev)
+            self.scan_checked = True
+        c = batch.pixels.shape[0]
+        leaves = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+        lp = GaussianParams(**leaves)
+        aux_in = [x.detach().requires_grad_(True) for x in aux_leaves(aux)]
+        la = aux_from_leaves(aux, aux_in)
+        dummy = torch.zeros((c, p.capacity, 2), device=dev, requires_grad=True)
+        pair_dummy = None if pair_tap is None else torch.zeros((c * pair_tap, 2), device=dev, requires_grad=True)
+
+        scales, opacities = lp.activated()
+        c2w = batch.camtoworlds
+        if cfg.pose_opt and la.pose is not None:
+            c2w = apply_pose_deltas(c2w, la.pose, batch.image_ids)
+        viewmats = torch.linalg.inv(c2w)
+        bkgd = background(cfg, bkgd, c, dev)
+        if cfg.app_opt and la.app is not None:
+            # The appearance MLP's embedding and feature residuals on the
+            # base colour logit sh0.
+            app = la.app if app_rows is None else dataclasses.replace(la.app, features=la.app.features[app_rows])
+            active_deg = min(step // cfg.sh_degree_interval, cfg.sh_degree)
+            dirs = view_directions(lp.means, c2w)
+            resid = appearance_colors(app, batch.image_ids, dirs, active_deg, cfg.sh_degree)
+            colors = torch.sigmoid(resid + lp.sh0[None, :, 0, :])
+            sh_degree, sh_mask = None, None
+        else:
+            colors = lp.sh_coeffs()
+            sh_degree = cfg.sh_degree
+            sh_mask = sh_basis_mask(cfg, step, dev)
+        return Frame(lp, la, dummy, pair_dummy, scales, opacities, viewmats, bkgd, colors, sh_degree, sh_mask)
+
+    def update(self, p: GaussianParams, grads, adam: AdamState, aux: AuxParams, aux_opt: AuxOptState,
+               agrads, sstate, stats, radii, step: int, mark):
+        """Adam on the gaussians (``grads`` in ``PARAM_NAMES`` order) and on
+        the enabled aux groups (``agrads`` in ``aux_leaves`` order: the pose
+        deltas at the means' decayed rate, the appearance MLP, the bilateral
+        grid at 2e-3), and the densification statistics from ``stats``
+        [C, N, 2] and ``radii`` [C, N] (when kept), in place, each phase
+        ended by its ``mark``. Returns (adam, aux_opt, sstate)."""
+        cfg = self.cfg
+        agrads = aux_from_leaves(aux, agrads)
+        adam = adam_update(p, GaussianParams(**dict(zip(PARAM_NAMES, grads))), adam, self.acfg, step)
+        mark("adam")
+        decay = np.float32(self.acfg.means_decay_gamma) ** np.float32(step)
+        if aux.pose is not None:
+            aux_opt.pose = simple_adam_update(aux.pose, agrads.pose, aux_opt.pose,
+                                              lr=np.float32(cfg.pose_opt_lr) * decay, weight_decay=cfg.pose_opt_reg)
+        if aux.app is not None:
+            aux_opt.app = simple_adam_update(aux.app, agrads.app, aux_opt.app, lr=cfg.app_opt_lr,
+                                             weight_decay=cfg.app_opt_reg)
+        if aux.grids is not None:
+            aux_opt.grids = simple_adam_update(aux.grids, agrads.grids, aux_opt.grids, lr=2e-3)
+        mark("aux")
+        if self.track_stats:
+            sstate = default_strategy.update_state(sstate, stats, radii, self.width, self.height)
+        mark("stats")
+        return adam, aux_opt, sstate
 
 
 def make_train_step(cfg, acfg: AdamConfig, width: int, height: int):
@@ -192,12 +277,10 @@ def make_train_step(cfg, acfg: AdamConfig, width: int, height: int):
     it). ``mark(name)``, when given, is called at each phase boundary
     (``chip_smoke.py`` records CUDA events there); with the tracer on, each
     phase is a span (``STEP_PHASES``) and the whole call is ``train_step``.
-    The gaussian buffers,
-    the aux groups, their Adam moments and the strategy statistics update in
-    place. Metrics stay on the device (no host sync)."""
-    use_absgrad = bool(getattr(cfg.strategy, "absgrad", False))
-    # MCMC relocation reads no screen-space statistics, so none are kept.
-    track_stats = not isinstance(cfg.strategy, MCMCStrategyConfig)
+    The gaussian buffers, the aux groups, their Adam moments and the
+    strategy statistics update in place. Metrics stay on the device (no
+    host sync)."""
+    frame = StepFrame(cfg, acfg, width, height)
     rasterize_kw = dict(
         near_plane=cfg.near_plane,
         far_plane=cfg.far_plane,
@@ -208,7 +291,6 @@ def make_train_step(cfg, acfg: AdamConfig, width: int, height: int):
         impl=cfg.rasterizer_impl,
         render_mode="RGB+ED" if cfg.depth_loss else "RGB",
     )
-    scan_checked = False
 
     @trace.spanned("train_step")
     def train_step(
@@ -222,75 +304,35 @@ def make_train_step(cfg, acfg: AdamConfig, width: int, height: int):
         bkgd: Optional[torch.Tensor] = None,
         mark: Optional[Callable[[str], None]] = None,
     ):
-        nonlocal scan_checked
         mark = trace.phases(STEP_PHASES, mark)
         p = gstate.params
         alive = gstate.alive
-        dev = p.means.device
-        if dev.type == "cuda" and not scan_checked:
-            # The JAX step resolves its scan lowering (_scan_mode) when it
-            # is first traced; the port checks its scan kernel here.
-            check_scan(dev)
-            scan_checked = True
-        c = batch.pixels.shape[0]
-        leaves = {k: v.detach().requires_grad_(True) for k, v in p.items()}
-        lp = GaussianParams(**leaves)
-        aux_in = [x.detach().requires_grad_(True) for x in aux_leaves(aux)]
-        la = aux_from_leaves(aux, aux_in)
-        dummy = torch.zeros((c, p.capacity, 2), device=dev, requires_grad=True)
-        pair_dummy = (
-            torch.zeros((c * p.capacity, 2), device=dev, requires_grad=True)
-            if use_absgrad
-            else None
-        )
-
-        scales, opacities = lp.activated()
-        c2w = batch.camtoworlds
-        if cfg.pose_opt and la.pose is not None:
-            c2w = apply_pose_deltas(c2w, la.pose, batch.image_ids)
-        viewmats = torch.linalg.inv(c2w)
-        bkgd = background(cfg, bkgd, c, dev)
-        if cfg.app_opt and la.app is not None:
-            colors = appearance_rgb(cfg, la.app, lp.sh0, lp.means, c2w, batch.image_ids, step)
-            sh_degree, sh_mask = None, None
-        else:
-            colors = lp.sh_coeffs()
-            sh_degree = cfg.sh_degree
-            sh_mask = sh_basis_mask(cfg, step, dev)
+        f = frame.setup(gstate, aux, batch, step, bkgd, p.capacity if frame.use_absgrad else None)
         mark("setup")
         render, alpha, info = rasterize(
-            lp.means, lp.quats, scales, opacities, colors, viewmats,
+            f.lp.means, f.lp.quats, f.scales, f.opacities, f.colors, f.viewmats,
             batch.Ks, width, height,
-            sh_degree=sh_degree, sh_mask=sh_mask, backgrounds=bkgd,
-            alive=alive, means2d_dummy=dummy, pair_dummy=pair_dummy,
+            sh_degree=f.sh_degree, sh_mask=f.sh_mask, backgrounds=f.bkgd,
+            alive=alive, means2d_dummy=f.dummy, pair_dummy=f.pair_dummy,
             pair_capacity=cfg.pair_capacity, **rasterize_kw,
         )
         mark("render")
         loss, l1, ssim_val, alpha = image_loss(
-            cfg, la, batch, render[..., :3], alpha, render[..., 3] if cfg.depth_loss else None
+            cfg, f.la, batch, render[..., :3], alpha, render[..., 3] if cfg.depth_loss else None
         )
-        loss = loss + regulariser_loss(cfg, alive, opacities, scales)
+        loss = loss + regulariser_loss(cfg, alive, f.opacities, f.scales)
         mark("loss")
 
         # Per-pair absolute gradients come from the compositor's absgrad
         # tap; the dense oracle (impl="xla") has none, and the statistics
         # fall back to the screen-space gradients, as in the JAX package.
-        absgrad = pair_dummy is not None and info.binning is not None
-        inputs = [leaves[k] for k in PARAM_NAMES] + [dummy] + ([pair_dummy] if absgrad else [])
-        # shN has no gradient when the appearance MLP replaces SH colours.
-        grads = torch.autograd.grad(loss, inputs + aux_in, allow_unused=True)
-        grads = [torch.zeros_like(x) if g is None else g for x, g in zip(inputs + aux_in, grads)]
+        absgrad = f.pair_dummy is not None and info.binning is not None
+        grads, taps, agrads = f.gradients(loss, [f.dummy] + ([f.pair_dummy] if absgrad else []))
         mark("backward")
-        adam = adam_update(
-            p, GaussianParams(**dict(zip(PARAM_NAMES, grads[:6]))), adam, acfg, step
+        stats = taps[1].reshape(batch.pixels.shape[0], -1, 2) if absgrad else taps[0]
+        adam, aux_opt, sstate = frame.update(
+            p, grads, adam, aux, aux_opt, agrads, sstate, stats, info.radii, step, mark
         )
-        mark("adam")
-        aux_opt = update_aux(cfg, acfg, aux, aux_opt, aux_from_leaves(aux, grads[len(inputs):]), step)
-        mark("aux")
-        if track_stats:
-            stats_grads = grads[7].reshape(c, -1, 2) if absgrad else grads[6]
-            sstate = default_strategy.update_state(sstate, stats_grads, info.radii, width, height)
-        mark("stats")
         metrics = dict(
             loss=loss.detach(),
             l1=l1.detach(),
@@ -299,7 +341,7 @@ def make_train_step(cfg, acfg: AdamConfig, width: int, height: int):
             alpha_mean=alpha.detach().mean(),
             pairs=(
                 info.binning.tile_starts[-1] if info.binning is not None
-                else torch.zeros((), dtype=torch.int32, device=dev)
+                else torch.zeros((), dtype=torch.int32, device=p.means.device)
             ),
         )
         return gstate, adam, sstate, aux, aux_opt, metrics

@@ -8,12 +8,11 @@ All sources compile in parallel, one ``nvcc`` process each. Libraries go to
 and flags, so an edited source never loads a stale library.
 
 Every C entry point takes device pointers and the CUDA stream as
-``c_void_p`` and returns ``cudaGetLastError()`` after its launch; ``check``
-raises on a non-zero code. ``LAUNCHES`` counts launches per kernel: the
-wrappers in ``ops/rasterize.py``, ``ops/project_pack.py`` and
-``ops/ssim.py`` add one where they launch, and nowhere else, so a run can
-show that its path went through the kernels. With the tracer on (``trace.py``) ``build`` is the
-span ``kernels.build``.
+``c_void_p`` (the stream last) and returns ``cudaGetLastError()`` after its
+launch. ``launch`` is the one way the wrappers start a kernel: it passes the
+current stream, raises on a non-zero code (``check``) and counts the launch
+in ``LAUNCHES``, so a run can show that its path went through the kernels.
+With the tracer on (``trace.py``) ``build`` is the span ``kernels.build``.
 
 Nothing here runs at import time: the CPU tests import every module.
 """
@@ -27,6 +26,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 from . import trace
 
@@ -189,3 +190,11 @@ def check(name: str, code: int) -> None:
     if code != 0:
         msg = _LIBS[name][2](code).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} ({code})")
+
+
+def launch(name: str, stream_of: torch.Tensor, *args) -> None:
+    """Launch kernel ``name`` with ``args`` on the current stream of
+    ``stream_of``'s device; raise if the launch failed, else count it."""
+    code = function(name)(*args, torch.cuda.current_stream(stream_of.device).cuda_stream)
+    check(name, code)
+    LAUNCHES[name] += 1

@@ -1,12 +1,13 @@
 """Projection, SH colours and the table pack as one op: a CUDA kernel pair
 (K4 forward, K5 backward) and their plain twins.
 
-``project_pack`` computes what ``render.rasterize`` composed from three
-modules before the tile binning: ``projection.project_gaussians``, the SH
-colours of ``sh.sh_to_color`` (or given colours) and ``tiles.pack_table``.
-It returns the compositor's table ``[C*N, 16]`` (conic diagonal pre-halved,
+``project_pack`` is how both train steps reach the compositor's table: it
+computes the composition ``projection.project_gaussians``, the SH colours of
+``sh.sh_to_color`` (or given colours) and ``pack_table``. It returns the
+table ``[C*N, 16]`` (the ``PACK_*`` columns, conic diagonal pre-halved,
 columns 10-15 zero), the radii ``[C, N]`` and extents ``[C, N, 2]`` (int32,
-0 where culled) and the depths ``[C, N]``.
+0 where culled) and the depths ``[C, N]``. The table's layout is defined
+here and nowhere else.
 
 On a CPU tensor it runs that composition itself (``project_pack_plain``),
 differentiable by autograd, so CPU results are those of the three modules to
@@ -34,9 +35,43 @@ import torch
 from .. import kernels
 from .projection import project_gaussians
 from .sh import _C0, _C1, _C2, _C3, num_sh_bases, sh_to_color
-from .tiles import PACK_COLS, pack_table
 
 CAMERA_MODELS = ("pinhole", "ortho", "fisheye")
+
+# Column layout of the per-gaussian table row the compositor reads.
+PACK_MX, PACK_MY = 0, 1
+PACK_CA, PACK_CB, PACK_CC = 2, 3, 4
+PACK_OPA = 5
+PACK_R, PACK_G, PACK_B = 6, 7, 8
+PACK_DEPTH = 9
+NATTR = 10  # the columns above; the rest of a row is zeros
+# Rows are 16 floats (64 bytes) so the kernels load them as four float4.
+PACK_COLS = 16
+
+
+def pack_table(
+    means2d: torch.Tensor,  # [C, N, 2]
+    conics: torch.Tensor,  # [C, N, 3]
+    opacities: torch.Tensor,  # [C, N]
+    colors: torch.Tensor,  # [C, N, 3]
+    depths: torch.Tensor,  # [C, N]
+) -> torch.Tensor:
+    """Per-gaussian attribute rows [C*N, 16] f32 with the conic diagonal
+    PRE-HALVED (0.5a, b, 0.5c), so the kernels' quadratic form needs no 0.5
+    pass; autograd through this function restores the factor."""
+    c, n = opacities.shape
+    half = torch.tensor([0.5, 1.0, 0.5], dtype=conics.dtype, device=conics.device)
+    return torch.cat(
+        [
+            means2d.reshape(c * n, 2),
+            (conics * half).reshape(c * n, 3),
+            opacities.reshape(c * n, 1),
+            colors.reshape(c * n, 3),
+            depths.reshape(c * n, 1),
+            torch.zeros((c * n, PACK_COLS - NATTR), dtype=means2d.dtype, device=means2d.device),
+        ],
+        dim=1,
+    ).contiguous()
 
 
 def camera_colors(means, colors, viewmats, sh_degree, sh_mask):
@@ -412,9 +447,6 @@ class _Inputs:
         self.cam = _cam_code(kw["camera_model"])
         self.kw = kw
 
-    def stream(self):
-        return torch.cuda.current_stream(self.means.device).cuda_stream
-
 
 def project_pack_fwd(inp: _Inputs, width: int, height: int):
     """K4: (table [C*N, 16], radii [C, N] int32, extents [C, N, 2] int32)."""
@@ -423,17 +455,14 @@ def project_pack_fwd(inp: _Inputs, width: int, height: int):
     table = torch.empty((c * n, PACK_COLS), dtype=torch.float32, device=dev)
     radii = torch.empty((c, n), dtype=torch.int32, device=dev)
     extents = torch.empty((c, n, 2), dtype=torch.int32, device=dev)
-    fn = kernels.function("project_pack_fwd")
-    code = fn(
+    kernels.launch(
+        "project_pack_fwd", inp.means,
         inp.means.data_ptr(), inp.quats.data_ptr(), inp.scales.data_ptr(), inp.opacities.data_ptr(),
         inp.colors.data_ptr(), _ptr(inp.sh_mask), _ptr(inp.alive),
         inp.viewmats.data_ptr(), inp.Ks.data_ptr(), table.data_ptr(), radii.data_ptr(), extents.data_ptr(),
         n, c, width, height, inp.cam, int(kw["antialiased"]), inp.nb, inp.coefs, inp.color_stride,
         float(kw["near_plane"]), float(kw["far_plane"]), float(kw["eps2d"]), float(kw["radius_clip"]),
-        inp.stream(),
     )
-    kernels.check("project_pack_fwd", code)
-    kernels.LAUNCHES["project_pack_fwd"] += 1
     return table, radii, extents
 
 
@@ -445,17 +474,15 @@ def project_pack_bwd(inp: _Inputs, dtable: torch.Tensor, width: int, height: int
     dmeans, dquats, dscales, dop = e(inp.means), e(inp.quats), e(inp.scales), e(inp.opacities)
     dcolors = e(inp.colors)
     dview = torch.zeros_like(inp.viewmats) if want_viewmats else None
-    fn = kernels.function("project_pack_bwd")
-    code = fn(
+    kernels.launch(
+        "project_pack_bwd", inp.means,
         inp.means.data_ptr(), inp.quats.data_ptr(), inp.scales.data_ptr(), inp.opacities.data_ptr(),
         inp.colors.data_ptr(), _ptr(inp.sh_mask), inp.viewmats.data_ptr(), inp.Ks.data_ptr(),
         dtable.data_ptr(), dmeans.data_ptr(), dquats.data_ptr(), dscales.data_ptr(), dop.data_ptr(),
         dcolors.data_ptr(), _ptr(dview),
         n, c, width, height, inp.cam, int(kw["antialiased"]), inp.nb, inp.coefs, inp.color_stride,
-        float(kw["near_plane"]), float(kw["eps2d"]), inp.stream(),
+        float(kw["near_plane"]), float(kw["eps2d"]),
     )
-    kernels.check("project_pack_bwd", code)
-    kernels.LAUNCHES["project_pack_bwd"] += 1
     return dmeans, dquats, dscales, dop, dcolors, dview
 
 

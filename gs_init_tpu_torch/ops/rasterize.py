@@ -37,14 +37,13 @@ from typing import Tuple
 import torch
 
 from .. import kernels
-from .tiles import PACK_COLS, PACK_DEPTH
+from .project_pack import NATTR, PACK_COLS, PACK_DEPTH
 
 ALPHA_MAX = 0.999
 ALPHA_MIN = 1.0 / 255.0
 TERM_EPS = 1e-4
 OUT_ROWS = 8
 ROW_R, ROW_G, ROW_B, ROW_ACC, ROW_DEPTH, ROW_T, ROW_NPROC = 0, 1, 2, 3, 4, 5, 6
-NATTR = 10  # table columns the compositor reads: mx my ca cb cc opa r g b d
 MAX_TILE_PIXELS = 1024  # 256 threads x 4 pixels in the CUDA kernels
 # Shared memory of a block per pair of a chunk, as the C entry points size
 # it: two staged 48-byte rows (double buffering) and three pair ids; the
@@ -96,8 +95,8 @@ def _gather_chunk(table, gid_sorted, starts, ends, c0, i, chunk):
 
 def _alpha_terms(rows, inrange, px, py):
     """Shared fwd/bwd alpha of one chunk, [L, chunk, P]; the diagonal conic
-    entries arrive pre-halved (tiles.pack_table). Same operation order as
-    the CUDA kernels' alpha_at, so both round alike."""
+    entries arrive pre-halved (project_pack.pack_table). Same operation
+    order as the CUDA kernels' alpha_at, so both round alike."""
     col = lambda c: rows[:, :, c : c + 1]  # [L, chunk, 1]
     mx, my, ca, cb, cc, opa = (col(c) for c in range(6))
     dx = px - mx
@@ -318,10 +317,6 @@ def _check(table, gid_sorted, tile_starts, num_tiles, tile, chunk):
         raise ValueError("table must be 16-byte aligned (16-byte row copies)")
 
 
-def _stream(t: torch.Tensor):
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def _launch_order(tile_starts, chunk, order):
     """The blocks' tile order: ``order`` if given (int32, one entry per
     tile), else the tiles by descending chunk count."""
@@ -341,15 +336,13 @@ def composite_fwd(table, gid_sorted, tile_starts, num_tiles, ntx, nty, tile, chu
             table, gid_sorted, tile_starts, num_tiles, ntx, nty, tile, chunk
         )
     _check(table, gid_sorted, tile_starts, num_tiles, tile, chunk)
-    fn = kernels.function("composite_fwd")
     out = torch.empty((num_tiles, OUT_ROWS, tile * tile), dtype=torch.float32, device=table.device)
     order = _launch_order(tile_starts, chunk, order)
-    code = fn(
+    kernels.launch(
+        "composite_fwd", table,
         table.data_ptr(), gid_sorted.data_ptr(), tile_starts.data_ptr(), order.data_ptr(), out.data_ptr(),
-        num_tiles, ntx, nty, tile, chunk, _stream(table),
+        num_tiles, ntx, nty, tile, chunk,
     )
-    kernels.check("composite_fwd", code)
-    kernels.LAUNCHES["composite_fwd"] += 1
     return out
 
 
@@ -370,17 +363,15 @@ def composite_bwd(
     for name, x in (("fwd_out", fwd_out), ("g_out", g_out)):
         if x.shape != shape or x.dtype != torch.float32 or not x.is_cuda or not x.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 CUDA tensor of shape {shape}")
-    fn = kernels.function("composite_bwd")
     dtable = torch.zeros_like(table)
     absgrad = torch.zeros((table.shape[0], 2), dtype=torch.float32, device=table.device)
     order = _launch_order(tile_starts, chunk, order)
-    code = fn(
+    kernels.launch(
+        "composite_bwd", table,
         table.data_ptr(), gid_sorted.data_ptr(), tile_starts.data_ptr(), order.data_ptr(),
         fwd_out.data_ptr(), g_out.data_ptr(), dtable.data_ptr(), absgrad.data_ptr(),
-        num_tiles, ntx, nty, tile, chunk, int(want_absgrad), _stream(table),
+        num_tiles, ntx, nty, tile, chunk, int(want_absgrad),
     )
-    kernels.check("composite_bwd", code)
-    kernels.LAUNCHES["composite_bwd"] += 1
     return dtable, absgrad
 
 
@@ -394,11 +385,8 @@ def scan_probe(x: torch.Tensor, m: torch.Tensor) -> Tuple[torch.Tensor, torch.Te
     for name, a in (("x", x), ("m", m)):
         if a.dtype != torch.float32 or not a.is_cuda or not a.is_contiguous() or a.device != x.device:
             raise ValueError(f"{name} must be a contiguous float32 tensor on {x.device}")
-    fn = kernels.function("scan_probe")
     s, q = torch.empty_like(x), torch.empty_like(m)
-    code = fn(x.data_ptr(), m.data_ptr(), s.data_ptr(), q.data_ptr(), x.shape[0], x.shape[1], _stream(x))
-    kernels.check("scan_probe", code)
-    kernels.LAUNCHES["scan_probe"] += 1
+    kernels.launch("scan_probe", x, x.data_ptr(), m.data_ptr(), s.data_ptr(), q.data_ptr(), x.shape[0], x.shape[1])
     return s, q
 
 
@@ -457,7 +445,7 @@ class _RenderTiles(torch.autograd.Function):
 
 
 def render_tiles(
-    table: torch.Tensor,  # [C*N, 16] f32 (tiles.pack_table)
+    table: torch.Tensor,  # [C*N, 16] f32 (project_pack.pack_table)
     pair_dummy: torch.Tensor,  # [C*N, 2] zeros: absgrad gradient tap
     gid_sorted: torch.Tensor,
     tile_starts: torch.Tensor,

@@ -5,7 +5,9 @@ CUDA kernel each way on the card) -> tile binning -> tile compositor (the
 CUDA kernels on the card). The argument surface mirrors the JAX ``rasterize``.
 ``impl="xla"`` composites with the dense oracle (``ops/rasterize_ref.py``)
 instead: no binning, no pair capacity (overflow 0), every gaussian against
-every pixel in chunks of ``pixel_chunk``.
+every pixel in chunks of ``pixel_chunk``. ``composite`` is the binning and
+the compositor alone, from a table: the sharded steps (``parallel/shard.py``)
+call it on the gathered table.
 
 ``impl="auto"`` is the tile compositor on every device. The JAX package's
 ``auto`` picks its dense oracle on the CPU only because Pallas kernels run
@@ -18,11 +20,11 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .project_pack import camera_colors, project_pack
+from .project_pack import PACK_MX, PACK_MY, camera_colors, project_pack
 from .projection import project_gaussians
 from .rasterize import render_tiles, unpack_tiles
 from .rasterize_ref import rasterize_reference
-from .tiles import PACK_MX, PACK_MY, TileBinning, bin_gaussians
+from .tiles import TileBinning, bin_gaussians
 
 
 class RenderInfo(NamedTuple):
@@ -30,6 +32,31 @@ class RenderInfo(NamedTuple):
     depths: torch.Tensor  # [C, N]
     overflow: torch.Tensor  # [] int32 pairs dropped by the pair capacity (0 for xla)
     binning: Optional[TileBinning]  # None for the dense oracle
+
+
+def composite(table, radii, extents, depths, width: int, height: int, tile_size: int, pair_capacity: int,
+              chunk_size: int, want_depth_grad: bool, pair_dummy: Optional[torch.Tensor] = None):
+    """Bin the gaussians of ``table`` [C*N, 16] (``project_pack``), whose
+    radii [C, N] and extents [C, N, 2] (int32) and depths [C, N] are given,
+    and composite them (K1 / K2 on the card); ``pair_dummy`` [C*N, 2] is
+    the absgrad tap (zeros) or None. Returns (color [C,H,W,3], alpha
+    [C,H,W], depth accumulator [C,H,W], binning)."""
+    num_cams = radii.shape[0]
+    means2d = table[:, PACK_MX : PACK_MY + 1].view(num_cams, -1, 2)
+    binning = bin_gaussians(
+        means2d, radii, depths, width, height, tile_size, pair_capacity,
+        chunk=chunk_size, extents=extents,
+    )
+    ntx, nty = binning.num_tiles_x, binning.num_tiles_y
+    want_absgrad = pair_dummy is not None
+    if pair_dummy is None:
+        pair_dummy = torch.zeros((table.shape[0], 2), dtype=table.dtype, device=table.device)
+    out = render_tiles(
+        table, pair_dummy, binning.gid_sorted, binning.tile_starts, num_cams * ntx * nty,
+        ntx, nty, tile_size, chunk_size, want_depth_grad, want_absgrad,
+    )
+    color, alpha, depth_acc = unpack_tiles(out, num_cams, ntx, nty, tile_size, width, height)
+    return color, alpha, depth_acc, binning
 
 
 def rasterize(
@@ -74,7 +101,6 @@ def rasterize(
     if render_mode not in ("RGB", "RGB+ED"):
         raise ValueError(f"unsupported render_mode {render_mode!r}")
 
-    num_cams = viewmats.shape[0]
     proj_kw = dict(
         near_plane=near_plane, far_plane=far_plane, eps2d=eps2d,
         antialiased=(rasterize_mode == "antialiased"), radius_clip=radius_clip,
@@ -97,22 +123,9 @@ def rasterize(
             sh_degree=sh_degree, sh_mask=sh_mask, means2d_dummy=means2d_dummy,
             **proj_kw,
         )
-        means2d = table[:, PACK_MX : PACK_MY + 1].view(num_cams, -1, 2)
-        binning = bin_gaussians(
-            means2d, radii, depths, width, height, tile_size, pair_capacity,
-            chunk=chunk_size, extents=extents,
-        )
-        num_tiles = num_cams * binning.num_tiles_x * binning.num_tiles_y
-        want_absgrad = pair_dummy is not None
-        if pair_dummy is None:
-            pair_dummy = torch.zeros((table.shape[0], 2), dtype=table.dtype, device=table.device)
-        out = render_tiles(
-            table, pair_dummy, binning.gid_sorted, binning.tile_starts, num_tiles,
-            binning.num_tiles_x, binning.num_tiles_y, tile_size, chunk_size,
-            render_mode == "RGB+ED", want_absgrad,
-        )
-        color, alpha, depth_acc = unpack_tiles(
-            out, num_cams, binning.num_tiles_x, binning.num_tiles_y, tile_size, width, height
+        color, alpha, depth_acc, binning = composite(
+            table, radii, extents, depths, width, height, tile_size, pair_capacity, chunk_size,
+            render_mode == "RGB+ED", pair_dummy,
         )
         overflow = binning.overflow
     if backgrounds is not None:

@@ -152,10 +152,6 @@ def _host_args(img0, img1, window):
     return strides, (ctypes.c_float * len(window))(*window)
 
 
-def _stream(x):
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
 def ssim_fwd(img0, img1, c1, c2, window, want_maps):
     """K6 on CUDA tensors, ``ssim_fwd_plain`` on CPU tensors: (mean SSIM as a
     0-dim tensor, the blurred maps [B, 5, C, Ho, Wo] or None)."""
@@ -170,11 +166,9 @@ def ssim_fwd(img0, img1, c1, c2, window, want_maps):
     out = torch.empty((), dtype=torch.float32, device=dev)
     maps = torch.empty((b, 5, c, ho, wo), dtype=torch.float32, device=dev) if want_maps else None
     strides, win = _host_args(img0, img1, window)
-    fn = kernels.function("ssim_fwd")
-    code = fn(img0.data_ptr(), img1.data_ptr(), strides, win, 0 if maps is None else maps.data_ptr(),
-              sums.data_ptr(), out.data_ptr(), nsums, b, h, w, c, float(c1), float(c2), _stream(img0))
-    kernels.check("ssim_fwd", code)
-    kernels.LAUNCHES["ssim_fwd"] += 1
+    kernels.launch("ssim_fwd", img0, img0.data_ptr(), img1.data_ptr(), strides, win,
+                   0 if maps is None else maps.data_ptr(), sums.data_ptr(), out.data_ptr(), nsums, b, h, w, c,
+                   float(c1), float(c2))
     return out, maps
 
 
@@ -196,11 +190,8 @@ def ssim_bwd(grad, img0, img1, maps, c1, c2, window):
     # The mean's backward on the card multiplies by the count's reciprocal,
     # rounded to float32 (torch's division of a tensor by a Python number).
     inv_count = float(np.float32(1.0) / np.float32(b * c * ho * wo))
-    fn = kernels.function("ssim_bwd")
-    code = fn(img0.data_ptr(), img1.data_ptr(), strides, win, maps.data_ptr(), grad.data_ptr(), dx.data_ptr(),
-              b, h, w, c, inv_count, float(c1), float(c2), _stream(img0))
-    kernels.check("ssim_bwd", code)
-    kernels.LAUNCHES["ssim_bwd"] += 1
+    kernels.launch("ssim_bwd", img0, img0.data_ptr(), img1.data_ptr(), strides, win, maps.data_ptr(),
+                   grad.data_ptr(), dx.data_ptr(), b, h, w, c, inv_count, float(c1), float(c2))
     return dx
 
 

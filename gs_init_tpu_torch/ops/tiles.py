@@ -18,16 +18,6 @@ from typing import NamedTuple, Optional
 
 import torch
 
-# Column layout of the per-gaussian table row the compositor reads.
-PACK_MX, PACK_MY = 0, 1
-PACK_CA, PACK_CB, PACK_CC = 2, 3, 4
-PACK_OPA = 5
-PACK_R, PACK_G, PACK_B = 6, 7, 8
-PACK_DEPTH = 9
-# Rows are 16 floats (64 bytes) so the kernels load them as four float4.
-PACK_COLS = 16
-
-
 class TileBinning(NamedTuple):
     gid_sorted: torch.Tensor  # [PAIR_CAP] int32 flattened (cam*N + gaussian)
     tile_starts: torch.Tensor  # [num_tiles + 1] int32 sorted-order ranges
@@ -121,28 +111,3 @@ def bin_gaussians(
         gauss_offsets=offsets.int(),
         gauss_counts=counts,
     )
-
-
-def pack_table(
-    means2d: torch.Tensor,  # [C, N, 2]
-    conics: torch.Tensor,  # [C, N, 3]
-    opacities: torch.Tensor,  # [C, N]
-    colors: torch.Tensor,  # [C, N, 3]
-    depths: torch.Tensor,  # [C, N]
-) -> torch.Tensor:
-    """Per-gaussian attribute rows [C*N, 16] f32 with the conic diagonal
-    PRE-HALVED (0.5a, b, 0.5c), so the kernels' quadratic form needs no 0.5
-    pass; autograd through this function restores the factor."""
-    c, n = opacities.shape
-    half = torch.tensor([0.5, 1.0, 0.5], dtype=conics.dtype, device=conics.device)
-    return torch.cat(
-        [
-            means2d.reshape(c * n, 2),
-            (conics * half).reshape(c * n, 3),
-            opacities.reshape(c * n, 1),
-            colors.reshape(c * n, 3),
-            depths.reshape(c * n, 1),
-            torch.zeros((c * n, PACK_COLS - 10), dtype=means2d.dtype, device=means2d.device),
-        ],
-        dim=1,
-    ).contiguous()

@@ -5,11 +5,14 @@ cameras (or pixel bands) are sharded over "data", the gaussian buffers
 (parameters, Adam moments, strategy statistics) along axis 0 over "gauss",
 and the aux groups (pose, appearance, bilateral grid) are replicated.
 
-Each rank projects its gaussian slice for its cameras and computes its SH
-colours; the compact screen-space attributes (10 floats and 3 ints per
-camera and gaussian) are all-gathered over "gauss"; binning and the tile
-compositor (the CUDA kernels K1 and K2 on the card) then run on every
-rank for its own cameras. The gradients follow ``jax.shard_map``'s
+Each rank projects, colours and packs its gaussian slice for its cameras
+through ``ops/project_pack`` (K4 / K5 on the card), as the one-card step
+does; the table's 10 attribute columns and the radii and extents (10
+floats and 3 ints per camera and gaussian) are all-gathered over "gauss";
+binning and the tile compositor (``ops/render.composite``: K1 and K2 on
+the card) then run on every rank for its own cameras. The setup before
+the render and the updates after the backward are the one-card step's
+(``engine/train_step.StepFrame``). The gradients follow ``jax.shard_map``'s
 (``collectives.py``): the all_gather's backward is a summing
 reduce-scatter, so per-rank gradients arrive ``n_gauss``-fold and the step
 scales them by ``1 / (n_data * n_gauss)`` after a sum over "data", as the
@@ -40,26 +43,18 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
-from ..config import MCMCStrategyConfig
-from ..engine.appearance import apply_pose_deltas
-from ..engine.optim import AdamState, adam_update
-from ..engine.params import PARAM_NAMES, GaussianParams, GaussianState, aux_from_leaves, aux_leaves
-from ..engine.strategy import default as default_strategy
-from ..engine.train_step import (
-    Batch,
-    appearance_rgb,
-    background,
-    image_loss,
-    regulariser_loss,
-    sh_basis_mask,
-    update_aux,
+from ..engine.optim import AdamState
+from ..engine.params import GaussianState
+from ..engine.train_step import Batch, StepFrame, image_loss, regulariser_loss
+from ..ops.project_pack import (
+    NATTR, PACK_B, PACK_CA, PACK_CB, PACK_CC, PACK_COLS, PACK_DEPTH, PACK_MX, PACK_MY, PACK_OPA, PACK_R,
+    project_pack,
 )
-from ..ops.projection import Projected, project_gaussians
-from ..ops.rasterize import check_scan, render_tiles, unpack_tiles
+from ..ops.projection import Projected
 from ..ops.rasterize_ref import rasterize_reference
-from ..ops.sh import sh_to_color
-from ..ops.tiles import bin_gaussians, pack_table
+from ..ops.render import composite
 from . import collectives as col
 
 
@@ -214,13 +209,21 @@ def band_height(height: int, tile: int, n_data: int) -> int:
     return -(-nty // n_data) * tile
 
 
+def _projected(table: torch.Tensor, radii, extents, c: int) -> Projected:
+    """The dense oracle's input from a table [C*N, 16]: its columns, the
+    conic diagonal doubled back (exact in float32, forwards and in the
+    gradient)."""
+    a = table.view(c, -1, PACK_COLS)
+    conics = torch.stack([2.0 * a[..., PACK_CA], a[..., PACK_CB], 2.0 * a[..., PACK_CC]], -1)
+    return Projected(means2d=a[..., PACK_MX:PACK_MY + 1], conics=conics, depths=a[..., PACK_DEPTH],
+                     radii=radii, opacities=a[..., PACK_OPA], extents=extents)
+
+
 def _make_step(cfg, acfg, width: int, height: int, mesh: Mesh, band: bool, bands_per_rank: int = 1):
     if not mesh.member:
         raise ValueError("this rank is outside the mesh")
     n_data, n_gauss = mesh.n_data, mesh.n_gauss
-    # MCMC relocation reads no screen-space statistics, so none are kept.
-    track_stats = not isinstance(cfg.strategy, MCMCStrategyConfig)
-    use_absgrad = bool(getattr(cfg.strategy, "absgrad", False)) and track_stats
+    frame = StepFrame(cfg, acfg, width, height)
     tiles = cfg.rasterizer_impl != "xla"
     tile = cfg.tile_size
     band_h = band_height(height, tile, n_data * bands_per_rank) if band else height
@@ -233,110 +236,66 @@ def _make_step(cfg, acfg, width: int, height: int, mesh: Mesh, band: bool, bands
     # gather adds n_data folds, and the sum over "data" collects the bands.
     # Either way the sum over "data" scales by 1 / (n_data * n_gauss).
     norm = 1.0 / (n_data * n_gauss)
-    scan_checked = False
+    proj_kw = dict(near_plane=cfg.near_plane, far_plane=cfg.far_plane, antialiased=cfg.antialiased,
+                   camera_model=cfg.camera_model)
 
     def train_step(gstate, adam, sstate, aux, aux_opt, batch: Batch, step: int,
                    bkgd: Optional[torch.Tensor] = None, mark: Optional[Callable[[str], None]] = None):
-        nonlocal scan_checked
         mark = mark or (lambda name: None)
         p = gstate.params
         alive = gstate.alive
         dev = p.means.device
-        if dev.type == "cuda" and not scan_checked:
-            check_scan(dev)
-            scan_checked = True
         c = batch.pixels.shape[0]
         n_local = p.capacity
         n_global = n_local * n_gauss
         rows = slice(mesh.gi * n_local, (mesh.gi + 1) * n_local)
-        leaves = {k: v.detach().requires_grad_(True) for k, v in p.items()}
-        lp = GaussianParams(**leaves)
-        aux_in = [x.detach().requires_grad_(True) for x in aux_leaves(aux)]
-        la = aux_from_leaves(aux, aux_in)
-        dummy = torch.zeros((c, n_local, 2), device=dev, requires_grad=True)
-        pair_dummy = (
-            torch.zeros((c * n_global, 2), device=dev, requires_grad=True)
-            if use_absgrad and tiles else None
-        )
-
-        scales, opacities = lp.activated()
-        c2w = batch.camtoworlds
-        if cfg.pose_opt and la.pose is not None:
-            c2w = apply_pose_deltas(c2w, la.pose, batch.image_ids)
-        viewmats = torch.linalg.inv(c2w)
         if cfg.random_bkgd and bkgd is not None and not band:  # the whole batch's draw, this rank's cameras
             bkgd = bkgd[mesh.di * c:(mesh.di + 1) * c]
-        bkgd = background(cfg, bkgd, c, dev)
-        proj = project_gaussians(
-            lp.means, lp.quats, scales, opacities, viewmats, batch.Ks, width, height,
-            near_plane=cfg.near_plane, far_plane=cfg.far_plane, antialiased=cfg.antialiased,
-            camera_model=cfg.camera_model, alive=alive,
+        f = frame.setup(gstate, aux, batch, step, bkgd, n_global if frame.use_absgrad and tiles else None,
+                        app_rows=rows)
+        table, radii, extents, _ = project_pack(
+            f.lp.means, f.lp.quats, f.scales, f.opacities, f.colors, f.viewmats, batch.Ks, width, height,
+            sh_degree=f.sh_degree, sh_mask=f.sh_mask, alive=alive, means2d_dummy=f.dummy, **proj_kw,
         )
-        if cfg.app_opt and la.app is not None:
-            app = dataclasses.replace(la.app, features=la.app.features[rows])
-            colors = appearance_rgb(cfg, app, lp.sh0, lp.means, c2w, batch.image_ids, step)
-        else:
-            # Camera centres from world->camera, as ops/render.rasterize.
-            centers = -torch.einsum("cji,cj->ci", viewmats[:, :3, :3], viewmats[:, :3, 3])
-            sh = lp.sh_coeffs()
-            colors = sh_to_color(
-                sh[None].expand((c,) + sh.shape), lp.means[None, :, :] - centers[:, None, :],
-                cfg.sh_degree, basis_mask=sh_basis_mask(cfg, step, dev),
-            )
-        means2d = proj.means2d + dummy
         mark("setup")
 
-        # The compact screen-space attributes of every gaussian shard.
-        attrs = torch.cat(
-            [means2d, proj.conics, proj.depths[..., None], proj.opacities[..., None], colors], -1
-        )
-        attrs = col.all_gather(attrs, mesh.gauss, dim=1)
-        ints = col.gather_raw(
-            torch.cat([proj.radii[..., None], proj.extents], -1).to(torch.int32), mesh.gauss, dim=1
-        )
-        means2d, conics, depths = attrs[..., 0:2], attrs[..., 2:5], attrs[..., 5]
-        opac2d, colors = attrs[..., 6], attrs[..., 7:10]
-        radii_all = ints[..., 0]
+        # The table's attribute columns, radii and extents of every gaussian
+        # shard, re-padded to the compositor's 64-byte rows.
+        attrs = col.all_gather(table[:, :NATTR].reshape(c, n_local, NATTR), mesh.gauss, dim=1)
+        ints = col.gather_raw(torch.cat([radii[..., None], extents], -1).to(torch.int32), mesh.gauss, dim=1)
+        table = F.pad(attrs, (0, PACK_COLS - NATTR)).reshape(c * n_global, PACK_COLS)
+        depths = attrs[..., PACK_DEPTH]
         mark("gather")
 
         overflow = torch.zeros((), dtype=torch.int32, device=dev)
         pairs = torch.zeros((), dtype=torch.int32, device=dev)
         parts = []
         for y0 in y0s:
-            m2d, radii, extents = means2d, ints[..., 0], ints[..., 1:3]
+            tb, radii, extents = table, ints[..., 0], ints[..., 1:3]
             if band:
                 # Band frame: cull gaussians whose footprint misses this
                 # band (the elliptical y-extent, binning's own support
                 # bound; clipped tile spans would re-admit every off-band
                 # gaussian) and shift screen y by the band's first row.
-                my = m2d[..., 1]
+                my = attrs[..., PACK_MY]
                 rf = extents[..., 1].float()
                 in_band = (my + rf >= y0) & (my - rf < y0 + band_h)
                 radii = torch.where(in_band, radii, 0)
                 extents = torch.where(in_band[..., None], extents, 0)
-                m2d = m2d - torch.tensor([0.0, y0], device=dev)
+                tb = table.clone()
+                tb[:, PACK_MY] -= y0
             if tiles:
-                binning = bin_gaussians(
-                    m2d, radii, depths, width, band_h, tile, cfg.pair_capacity,
-                    chunk=cfg.chunk_size, extents=extents,
+                color, alpha, depth_acc, binning = composite(
+                    tb, radii, extents, depths, width, band_h, tile, cfg.pair_capacity, cfg.chunk_size,
+                    bool(cfg.depth_loss), f.pair_dummy,
                 )
-                table = pack_table(m2d, conics, opac2d, colors, depths)
-                ntx, nty = binning.num_tiles_x, binning.num_tiles_y
-                pd = pair_dummy if pair_dummy is not None else torch.zeros(
-                    (table.shape[0], 2), dtype=table.dtype, device=dev
-                )
-                out = render_tiles(
-                    table, pd, binning.gid_sorted, binning.tile_starts, c * ntx * nty, ntx, nty,
-                    tile, cfg.chunk_size, bool(cfg.depth_loss), pair_dummy is not None,
-                )
-                parts.append(unpack_tiles(out, c, ntx, nty, tile, width, band_h))
+                parts.append((color, alpha, depth_acc))
                 overflow = torch.maximum(overflow, binning.overflow.to(torch.int32))
                 pairs = torch.maximum(pairs, binning.tile_starts[-1].to(torch.int32))
             else:
                 parts.append(rasterize_reference(
-                    Projected(means2d=m2d, conics=conics, depths=depths, radii=radii,
-                              opacities=opac2d, extents=extents),
-                    colors, width, band_h, tile_size=tile,
+                    _projected(tb, radii, extents, c), tb.view(c, n_global, PACK_COLS)[..., PACK_R:PACK_B + 1],
+                    width, band_h, tile_size=tile,
                 ))
         mark("composite")
         if band:
@@ -347,8 +306,8 @@ def _make_step(cfg, acfg, width: int, height: int, mesh: Mesh, band: bool, bands
             color, alpha, depth_acc = img[..., 0:3], img[..., 3], img[..., 4]
         else:
             color, alpha, depth_acc = parts[0]
-        if bkgd is not None:
-            color = color + (1.0 - alpha)[..., None] * bkgd[:, None, None, :]
+        if f.bkgd is not None:
+            color = color + (1.0 - alpha)[..., None] * f.bkgd[:, None, None, :]
         mark("render")
 
         # Cameras: the disparity loss over the GLOBAL valid count, times
@@ -358,48 +317,43 @@ def _make_step(cfg, acfg, width: int, height: int, mesh: Mesh, band: bool, bands
             lambda valid: torch.clamp(col.psum_raw(valid.sum().float(), mesh.data), min=1.0) / n_data
         )
         loss, l1, ssim_val, alpha = image_loss(
-            cfg, la, batch, color, alpha[..., None],
+            cfg, f.la, batch, color, alpha[..., None],
             depth_acc / torch.clamp(alpha, min=1e-10) if cfg.depth_loss else None, depth_count,
         )
         # Regularisers over the whole capacity: psum the shard sums so the
         # loss stays the same on every gauss rank (the fold factor needs it).
         loss = loss + regulariser_loss(
-            cfg, alive, opacities, scales, mean=lambda x: col.psum(x.sum(), mesh.gauss) / (x.numel() * n_gauss)
+            cfg, alive, f.opacities, f.scales,
+            mean=lambda x: col.psum(x.sum(), mesh.gauss) / (x.numel() * n_gauss),
         )
         mark("loss")
 
-        taps = [dummy] + ([pair_dummy] if pair_dummy is not None else [])
-        inputs = [leaves[k] for k in PARAM_NAMES] + taps + aux_in
-        grads = torch.autograd.grad(loss, inputs, allow_unused=True)
-        grads = [torch.zeros_like(x) if g is None else g for x, g in zip(inputs, grads)]
+        grads, taps, agrads = f.gradients(loss, [f.dummy] + ([f.pair_dummy] if f.pair_dummy is not None else []))
         mark("backward")
-        pgrads = col.psum_flat(grads[:6], mesh.data, norm)
-        agrads = aux_from_leaves(aux, col.psum_flat(grads[6 + len(taps):], mesh.world, norm))
-        if track_stats:
-            if pair_dummy is not None:
+        grads = col.psum_flat(grads, mesh.data, norm)
+        agrads = col.psum_flat(agrads, mesh.world, norm)
+        stats = radii_local = None
+        if frame.track_stats:
+            if f.pair_dummy is not None:
                 # Pair taps cross no collective: once per rank (d-fold in
                 # band mode, summed over bands), the same on every gauss
                 # rank; this shard's columns, by the data-mean factor.
-                taps_g = grads[7]
+                taps_g = taps[1]
                 if band:
                     taps_g = col.psum_raw(taps_g, mesh.data)
                 stats = taps_g.reshape(c, n_global, 2)[:, rows] * (1.0 / n_data)
             elif band:  # the means2d tap rides both gathers: d*g-fold
-                stats = col.psum_raw(grads[6], mesh.data) * norm
+                stats = col.psum_raw(taps[0], mesh.data) * norm
             else:
-                stats = grads[6] * norm
-            radii_local = radii_all[:, rows]
+                stats = taps[0] * norm
+            radii_local = ints[..., 0][:, rows]
             if not band:  # the densification statistics sum over every camera
                 stats = col.gather_raw(stats, mesh.data, 0)
                 radii_local = col.gather_raw(radii_local.contiguous(), mesh.data, 0)
         mark("reduce")
-        adam = adam_update(p, GaussianParams(**dict(zip(PARAM_NAMES, pgrads))), adam, acfg, step)
-        mark("adam")
-        aux_opt = update_aux(cfg, acfg, aux, aux_opt, agrads, step)
-        mark("aux")
-        if track_stats:
-            sstate = default_strategy.update_state(sstate, stats, radii_local, width, height)
-        mark("stats")
+        adam, aux_opt, sstate = frame.update(
+            p, grads, adam, aux, aux_opt, agrads, sstate, stats, radii_local, step, mark
+        )
         # Pair capacity is per data shard: report the worst, so the
         # Runner's retune sizes the capacity for it.
         worst = col.pmax(torch.stack([overflow.to(torch.int32), pairs.to(torch.int32)]), mesh.data)

@@ -22,7 +22,9 @@ first Adam moments within 1e-4 of each leaf's max, each parameter within
 ``tests/test_torch_train_step.py``. Refine and relocation on the mesh
 equal the one-device result exactly.
 """
+import ast
 import functools
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -45,8 +47,8 @@ from gs_init_tpu_torch.config import Config, DefaultStrategyConfig
 from gs_init_tpu_torch.datasets.synthetic import make_scene
 from gs_init_tpu_torch.engine.params import PARAM_NAMES
 from torch_dist import (
-    assert_adam_steps_close, assert_step_match, global_mesh_info, mesh_jobs, run_step, spawn,
-    strategy_on_mesh,
+    assert_adam_steps_close, assert_step_match, global_mesh_info, mesh_jobs, project_pack_calls, run_step,
+    spawn, strategy_on_mesh,
 )
 from torch_parity import assert_close_scaled
 
@@ -258,3 +260,22 @@ def test_multihost_global_mesh():
     for r, (shape, at, ranks, sl, (rank, world)) in enumerate(res):
         assert shape == {"data": 2, "gauss": 2} and ranks == [[0, 1], [2, 3]]
         assert at == (r // 2, r % 2) and sl == slice(2 * r, 2 * r + 2) and (rank, world) == (r, 4)
+
+
+def test_sharded_steps_render_through_the_one_card_ops(inputs):
+    """The camera step and the band step (two bands on one rank) project,
+    colour and pack once a step through ``ops/project_pack`` and composite
+    through ``ops/render.composite``, as ``rasterize`` does; ``parallel/
+    shard.py`` imports none of the composition that ``project_pack``
+    replaced."""
+    from gs_init_tpu_torch.ops import render
+    from gs_init_tpu_torch.parallel import shard
+
+    calls = spawn(project_pack_calls, 1, dict(BASE), float(_scene().scene_scale), W, H, inputs["base"])[0]
+    assert calls == {"cameras": 1, "band": 1}
+    assert shard.composite is render.composite
+    tree = ast.parse(inspect.getsource(shard))
+    imported = {a.asname or a.name for node in ast.walk(tree) if isinstance(node, (ast.Import, ast.ImportFrom))
+                for a in node.names}
+    assert "project_pack" in imported
+    assert not imported & {"project_gaussians", "sh_to_color", "pack_table"}

@@ -13,11 +13,12 @@ import pytest
 import torch
 
 from gs_init_tpu_torch.ops import project_pack as ppk
+from gs_init_tpu_torch.ops.project_pack import pack_table
 from gs_init_tpu_torch.ops.projection import project_gaussians
 from gs_init_tpu_torch.ops.rasterize import render_tiles, unpack_tiles
 from gs_init_tpu_torch.ops.render import rasterize
 from gs_init_tpu_torch.ops.sh import sh_to_color
-from gs_init_tpu_torch.ops.tiles import bin_gaussians, pack_table
+from gs_init_tpu_torch.ops.tiles import bin_gaussians
 
 W, H = 64, 48
 NEAR = 0.01

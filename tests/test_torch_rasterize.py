@@ -20,7 +20,8 @@ from gs_init_tpu.ops.rasterize import render_tiles as j_render_tiles
 from gs_init_tpu.ops.sh import sh_to_color as j_sh_to_color
 from gs_init_tpu.ops.tiles import bin_gaussians as j_bin, pack_table as j_pack
 from gs_init_tpu_torch.ops import rasterize as prast
-from gs_init_tpu_torch.ops.tiles import bin_gaussians, pack_table
+from gs_init_tpu_torch.ops.project_pack import pack_table
+from gs_init_tpu_torch.ops.tiles import bin_gaussians
 from torch_parity import H, W, assert_close_scaled, deep_stack, n, scene, t
 
 TILE, CHUNK, CAP = 16, 128, 8192

@@ -226,6 +226,31 @@ def mesh_jobs(rank, world, jobs):
     return out
 
 
+def project_pack_calls(rank, world, cfg_kw, scale, width, height, inputs):
+    """A spawn worker: the calls of ``project_pack`` in one camera step and
+    in one band step with two bands, each on a 1x1 mesh."""
+    from gs_init_tpu_torch.config import Config
+    from gs_init_tpu_torch.parallel import shard
+
+    real, calls = shard.project_pack, []
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return real(*args, **kw)
+
+    shard.project_pack = counted
+    out = {}
+    try:
+        for band, bands_per_rank in ((False, 1), (True, 2)):
+            calls.clear()
+            cfg = Config(**dict(cfg_kw, shard_pixels=band))
+            run_step(cfg, scale, width, height, inputs, (1, 1), band, bands_per_rank)
+            out["band" if band else "cameras"] = len(calls)
+    finally:
+        shard.project_pack = real
+    return out
+
+
 def train_losses(rank, world, cfg_kw, scale, inputs, images, c2ws, Ks):
     """A spawn worker: 30 sharded steps on a (2, 2) mesh over alternating
     camera pairs; returns the losses."""
