@@ -4,7 +4,7 @@ region assignment — port of ``gs_init_tpu/mdi/segmentation_sam.py``.
 The predicted depth is clamped to its 5-95% quantiles over the valid
 pixels, colour-mapped (viridis) to RGB and run through the automatic mask
 generator: a 32x32 grid of point prompts in batches of 64, multimask
-output, the IoU and stability filters, a greedy box NMS on the host. With
+output, the IoU and stability filters, a greedy box NMS. With
 ``sam_use_normals`` the normal map is segmented too. The masks are painted
 into a region map largest first, a mask that lies more than 75% inside an
 existing region merging into it; then the labels are expanded, the
@@ -12,18 +12,24 @@ unassigned pixels split into connected components and tiny components
 separated.
 
 The networks run on ``device`` (the card by default); the resizes are
-``models.common.resize``, which reproduces ``jax.image.resize``. Filtering,
-NMS and painting are numpy, once per image at init. Without a checkpoint
-(``sam_vit_*`` under ``$GS_TPU_CHECKPOINT_DIR`` or ``~/.cache/gs_init_tpu``)
-the generator raises unless random weights are allowed.
+``models.common.resize``, which reproduces ``jax.image.resize``. The filters
+run where the logits are: each decoder batch's stability scores, IoU and
+stability flags and low-res boxes are computed on ``device`` as the batch is
+enqueued, and one copy a call brings them to the host, where the box NMS runs
+(numpy); NMS's survivors are upsampled on ``device`` and come to the host in
+one more copy. Painting is numpy, once per image at init. Without a
+checkpoint (``sam_vit_*`` under ``$GS_TPU_CHECKPOINT_DIR`` or
+``~/.cache/gs_init_tpu``) the generator raises unless random weights are
+allowed.
 
 With the tracer on (``trace.py``): each ``generate`` call is span
 ``sam.generate``, around the encoder's ``sam.encode`` and each batch's
-``sam.decode`` (``models/sam.py``); ``sam.filter`` runs from the first copy
-to the host to the kept masks at full size, and ``sam.paint`` over the
-painting and its postprocess. Counters: ``sam.prompts`` (point prompts),
-``sam.masks_kept`` (masks returned) and ``sam.host_bytes`` (bytes copied
-from the device to the host).
+``sam.decode`` (``models/sam.py``); ``sam.filter`` runs from the first
+batch's filter to the kept masks at full size on the host, and ``sam.paint``
+over the painting and its postprocess. Counters: ``sam.prompts`` (point
+prompts), ``sam.masks_passed`` (masks past the IoU and stability filters,
+before NMS), ``sam.masks_kept`` (masks returned) and ``sam.host_bytes``
+(bytes copied from the device to the host).
 """
 from __future__ import annotations
 
@@ -89,6 +95,29 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
     a = t.cpu().numpy()
     trace.count("sam.host_bytes", a.nbytes)
     return a
+
+
+def _mask_scores(logits: torch.Tensor, iou: torch.Tensor, valid, offset: float, thresh) -> torch.Tensor:
+    """The filter's inputs for a decoder batch's masks (``logits`` [n, 3, s,
+    s], ``iou`` [n, 3]), on their device: [3n, 7] float32 rows of the IoU
+    prediction, the stability score, 1 where both pass ``thresh`` (IoU,
+    stability) else 0, and the box (x0, y0, x1, y1) of the pixels above the
+    mask threshold in the valid region ``[:lh, :lw]``, -1 where there is
+    none. Counts, compares and indices: exact, as the host's were."""
+    hi = (logits > MASK_THRESHOLD + offset).sum(dim=(-2, -1)).float()
+    lo = (logits > MASK_THRESHOLD - offset).sum(dim=(-2, -1)).float()
+    stab = hi / torch.clamp(lo, min=1.0)
+    keep = (iou > thresh[0]) & (stab > thresh[1])
+    lh, lw = valid
+    box = torch.full(iou.shape + (4,), -1, device=iou.device)
+    if lh and lw:
+        on = logits[..., :lh, :lw] > MASK_THRESHOLD
+        for k, hit in enumerate((on.any(dim=-2), on.any(dim=-1))):  # columns (x), then rows (y)
+            ix = torch.arange(hit.shape[-1], device=hit.device)
+            box[..., k] = torch.where(hit, ix, hit.shape[-1]).amin(-1)
+            box[..., k + 2] = torch.where(hit, ix, -1).amax(-1)
+        box = torch.where(box[..., 2:3] < 0, -1, box)
+    return torch.cat([iou[..., None], stab[..., None], keep[..., None].float(), box.float()], -1).reshape(-1, 7)
 
 
 def _box_nms(boxes, iou, thresh: float):
@@ -182,11 +211,14 @@ class SamMaskGenerator:
         gy = (np.arange(pps) + 0.5) / pps * nh
         pts = np.stack(np.meshgrid(gx, gy, indexing="xy"), -1).reshape(-1, 2)
         trace.count("sam.prompts", len(pts))
-        out_masks, out_iou, out_stab = [], [], []
         bsz = self.points_per_batch
-        t, o = MASK_THRESHOLD, self.stability_offset
-        # Span sam.filter runs from the first copy to the host to the kept
-        # masks at full size.
+        lh, lw = int(round(nh / 4)), int(round(nw / 4))  # the valid region at low resolution
+        # The thresholds in float32, as numpy's compare of a float32 array
+        # rounds a Python float.
+        thresh = (float(np.float32(self.pred_iou_thresh)), float(np.float32(self.stability_score_thresh)))
+        logits, scores = [], []
+        # Span sam.filter runs from the first batch's filter to the kept
+        # masks at full size on the host.
         with contextlib.ExitStack() as filtering:
             for i in range(0, len(pts), bsz):
                 batch = pts[i : i + bsz]
@@ -199,36 +231,33 @@ class SamMaskGenerator:
                 with full_fp32():
                     sparse, no_mask = net.prompt_encoder(points, labels)
                     masks, iou = net.mask_decoder(embed, dense_pe, sparse, no_mask)
-                # Multimask output: tokens 1..3, not the single-mask token 0.
-                masks, iou = masks[: len(batch), 1:], iou[: len(batch), 1:]
-                hi = (masks > t + o).sum(dim=(-2, -1)).float()
-                lo = (masks > t - o).sum(dim=(-2, -1)).float()
                 if i == 0:
                     filtering.enter_context(trace.span("sam.filter", device=False))
-                out_masks.append(_to_host(masks))
-                out_iou.append(_to_host(iou))
-                out_stab.append(_to_host(hi / torch.clamp(lo, min=1.0)))
+                # Multimask output: tokens 1..3, not the single-mask token 0.
+                logits.append(masks[: len(batch), 1:])
+                scores.append(_mask_scores(logits[-1], iou[: len(batch), 1:], (lh, lw),
+                                           self.stability_offset, thresh))
 
-            side = S // 16 * 4
-            masks = np.concatenate(out_masks).reshape(-1, side, side)
-            iou = np.concatenate(out_iou).reshape(-1)
-            stab = np.concatenate(out_stab).reshape(-1)
-            keep = (iou > self.pred_iou_thresh) & (stab > self.stability_score_thresh)
-            masks, iou, stab = masks[keep], iou[keep], stab[keep]
-
-            lh, lw = int(round(nh / 4)), int(round(nw / 4))  # the valid region at low resolution
-            boxes = []
-            for m in masks:
-                ys, xs = np.nonzero(m[:lh, :lw] > MASK_THRESHOLD)
-                boxes.append((xs.min(), ys.min(), xs.max(), ys.max()) if len(xs) else None)
+            # The one copy of the filter a call; the kept masks in the order
+            # (batch, prompt, token), so that NMS breaks ties as before.
+            table = _to_host(torch.cat(scores))
+            passed = np.flatnonzero(table[:, 2] > 0)
+            trace.count("sam.masks_passed", len(passed))
+            iou, stab = table[passed, 0], table[passed, 1]
+            boxes = [tuple(b) if b[0] >= 0 else None for b in table[passed, 3:].astype(np.int64)]
+            survivors = _box_nms(boxes, iou, self.box_nms_thresh)
+            full = []
+            for ix in survivors:
+                b, r = divmod(int(passed[ix]), 3 * bsz)
+                low = logits[b][r // 3, r % 3, :lh, :lw].contiguous()
+                full.append(resize(low, (h, w), "bilinear") > MASK_THRESHOLD)
+            full = _to_host(torch.stack(full)) if full else []
             results = []
-            for ix in _box_nms(boxes, iou, self.box_nms_thresh):
-                low = torch.as_tensor(np.ascontiguousarray(masks[ix][:lh, :lw]), device=dev)
-                full = _to_host(resize(low, (h, w), "bilinear") > MASK_THRESHOLD)
-                area = int(full.sum())
+            for ix, m in zip(survivors, full):
+                area = int(m.sum())
                 if area == 0:
                     continue
-                results.append(dict(segmentation=full, area=area, predicted_iou=float(iou[ix]),
+                results.append(dict(segmentation=m, area=area, predicted_iou=float(iou[ix]),
                                     stability_score=float(stab[ix])))
             trace.count("sam.masks_kept", len(results))
             return results

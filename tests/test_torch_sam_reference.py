@@ -188,6 +188,85 @@ def test_merge_and_region_alignment_equal_the_references(narrow_generator, monke
     np.testing.assert_array_equal(amask, r_mask)
 
 
+
+def planted_logits():
+    """Decoder outputs for 16 prompts in batches of 6, 6 and 4 (padded to 6),
+    32x32 logits a token, planted at the filters' edges. Mask g (tokens 1-3,
+    g = 3 x prompt + token - 1): IoU at float32(0.88) and one ulp either side
+    (0, 1, 2); stability exactly at 0.95 and one count either side (5, 20,
+    21: 949, 951 and 950 of 1,000 pixels above +1); no pixel set (6); set
+    only outside the valid rows [:21] (7); three tied IoUs in three batches
+    (9, 27, 45) and a mask that NMS drops beside the first, set also below
+    the valid rows (30); one pixel above +1 whose upsampled mask is empty
+    (40). Every other mask, token 0 and the padding rows fail the filters or
+    must be left out."""
+    f32 = np.float32
+    logits = np.full((18, 4, 32, 32), -5.0, f32)
+    iou = np.full((18, 4), 0.5, f32)
+    # Token 0 and the padding prompts pass every filter: the generator must
+    # not look at them.
+    logits[:, 0, 10:20, 10:20] = 5.0
+    iou[:, 0] = 0.999
+    logits[16:, 1:, 10:20, 10:20] = 5.0
+    iou[16:, 1:] = 0.999
+
+    def mask(g, score, box=None):
+        p, k = divmod(g, 3)
+        if box is not None:
+            x0, y0, x1, y1 = box
+            logits[p, k + 1, y0 : y1 + 1, x0 : x1 + 1] = 5.0
+        iou[p, k + 1] = score
+        return logits[p, k + 1]
+
+    up = np.nextafter(f32(0.88), f32(1))
+    mask(0, f32(0.88), (2, 2, 5, 5))
+    mask(1, up, (8, 2, 11, 5))
+    mask(2, np.nextafter(f32(0.88), f32(0)), (2, 8, 5, 11))
+    for g, n_hi in ((5, 949), (20, 951), (21, 950)):
+        m = mask(g, f32(0.96)).reshape(-1)
+        m[:1000] = 0.5  # above -1, below +1
+        m[:n_hi] = 5.0
+    mask(6, f32(0.99))
+    mask(7, f32(0.99), (4, 25, 12, 30))
+    for g in (9, 27, 45):
+        mask(g, f32(0.93), (14 + 6 * (g // 18), 2, 17 + 6 * (g // 18), 5))
+    mask(30, f32(0.92), (14, 2, 17, 6))[25:31, 14:18] = 5.0  # outside the valid rows: not in its box
+    m = mask(40, f32(0.97))
+    m[:] = -100.0
+    m[14, 16] = 1.01
+    return torch.from_numpy(logits), torch.from_numpy(iou)
+
+
+def test_filters_at_their_edges_equal_the_reference(monkeypatch):
+    """The generator on planted decoder outputs at the default filters (IoU
+    0.88, stability 0.95, NMS 0.7) against the reference's
+    ``masks_from_logits``: the same masks, areas and order; the scores the
+    planted ones."""
+    monkeypatch.setitem(PS.SAM_VARIANTS, "vit_b", NARROW)
+    gen = PS.SamMaskGenerator(variant="vit_b", img_size=128, points_per_side=4, points_per_batch=6,
+                              allow_random_weights=True, device="cpu")
+    logits, iou = planted_logits()
+    batches = iter(zip(logits.split(6), iou.split(6)))
+    gen.net.mask_decoder.register_forward_hook(lambda m, i, o: next(batches))
+    trace.enable("cpu")
+    trace.reset()
+    try:
+        got = gen.generate(np.zeros((H, W, 3), np.uint8))
+        counts = trace.report()["counters"]
+    finally:
+        trace.disable()
+        trace.reset()
+    assert counts["sam.masks_passed"] == 8  # masks 1, 7, 9, 20, 27, 30, 40, 45
+    want = A.masks_from_logits(logits[:16, 1:], iou[:16, 1:], (H, W), (85, 128), "cpu")
+    assert len(got) == len(want) == 5  # 20, the three ties, 1
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a["segmentation"], b["segmentation"])
+        assert a["area"] == b["area"] == b["segmentation"].sum() > 0
+    up = float(np.nextafter(np.float32(0.88), np.float32(1)))
+    assert [m["predicted_iou"] for m in got] == [float(np.float32(s)) for s in (0.96, 0.93, 0.93, 0.93)] + [up]
+    assert got[0]["stability_score"] == float(np.float32(951) / np.float32(1000))
+    assert [m["stability_score"] for m in got[1:]] == [1.0] * 4
+
 def test_encoder_count_against_a_hand_count():
     """Each linear 2 in out a token, the patch and neck convolutions, each
     attention 4 N^2 C plus the relative-position terms 2 N (h + w) C; in a
@@ -232,9 +311,10 @@ def test_spans_and_counters_when_on(narrow_generator):
     assert counts["sam.prompts"] == 2 * 1024
     kept = counts["sam.masks_kept"]
     assert kept > 0
-    # Per call: 1,024 prompts x 3 masks x 32 x 32 float32 logits, their IoU
-    # and stability (float32 each), then each kept mask at full size (bool).
-    assert counts["sam.host_bytes"] == 2 * 1024 * 3 * 32 * 32 * 4 + 2 * 1024 * 3 * 4 * 2 + kept * H * W
+    assert counts["sam.masks_passed"] == 2 * 1024 * 3  # the filters at -inf pass every mask
+    # Per call: 1,024 prompts x 3 masks x 7 float32 (IoU, stability, the
+    # filters' flag, the low-res box), then each kept mask at full size (bool).
+    assert counts["sam.host_bytes"] == 2 * 1024 * 3 * 7 * 4 + kept * H * W
 
 
 def test_off_records_nothing_and_gives_the_same_labels(narrow_generator, monkeypatch):
