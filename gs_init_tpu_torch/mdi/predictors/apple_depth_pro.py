@@ -8,7 +8,9 @@ else half the width). The image is resized to ``input_size`` square (1536;
 to [-1, 1]; the net gives canonical inverse depth, resized back to the
 image, and the depth is ``1 / clip(inv * W / f_px, 1e-4, 1e4)``, as
 HuggingFace's post-processing computes it. Float32 with TF32 off, a batch
-at a time on ``device``; images go to the card as float32.
+at a time on ``device``; images go to the card as float32. With the tracer
+on (``trace.py``) each batch is span ``depth_pro.predict``, with CUDA events:
+its self time is the resizes, the copy to the host and the conversion.
 
 Weights: the HuggingFace ``apple/DepthPro-hf`` state dict (a file whose
 name holds "depth" and "pro") under ``$GS_TPU_CHECKPOINT_DIR``,
@@ -25,6 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ... import trace
 from ...device import DeviceLike, resolve_device
 from ...models.common import build, full_fp32, init_random_, load_checked, resize
 from ...models.common import state_dict_from_flax as _from_flax
@@ -100,6 +103,7 @@ class AppleDepthProPredictor:
             _LOGGER.warning("DepthPro running with RANDOM weights (explicitly allowed)")
         self.net.to(self.device).eval()
 
+    @trace.spanned("depth_pro.predict")
     @torch.inference_mode()
     def predict_depth_batch(self, images: np.ndarray, intrinsics) -> list:
         b, h, w = images.shape[:3]

@@ -17,6 +17,13 @@ The default ViT is DepthPro-hf's DINOv2-L/16 at 384 (24 x 24 patches,
 tile a 384 crop (384 / 14 = 27.4): its DepthProNet cannot run at its own
 defaults (ROADMAP Queue C); its tests use a 56 crop of 14-px patches.
 
+With the tracer on (``trace.py``), a pass is spans ``depth_pro.patch_encode``
+(the crops through the patch encoder), ``depth_pro.image_encode`` and
+``depth_pro.decode`` (neck, fusion stage and head), each with CUDA events,
+and two ``depth_pro.merge`` spans on the host clock (the scales cut into
+crops; the crop grids merged back into feature maps); the counter
+``depth_pro.crops`` adds the crops of each pass (35 at 1536).
+
 Every resize is ``jax.image.resize`` bilinear (antialiased when it
 shrinks, as the JAX package's is), by weight matrices. Parameter names
 are the HuggingFace checkpoint's outside the three ViTs
@@ -34,6 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import trace
 from .common import resize
 from .vit import DinoViT
 
@@ -258,45 +266,52 @@ class DepthProNet(nn.Module):
         n_scales = len(self.ratios)
         enc = self.depth_pro.encoder
 
-        per_scale = [split_to_patches(resize(x, (int(h * r), int(w * r))), psize, ov)
-                     for r, ov in zip(self.ratios, self.overlaps)]
-        counts = [p.shape[0] for p in per_scale]
-        pe_outs, _ = enc.patch_encoder.model(torch.cat(per_scale[::-1], dim=0))  # high res first
-        per_scale_feats = torch.split(pe_outs[-1], counts[::-1], dim=0)[::-1]
+        with trace.span("depth_pro.merge", device=False):
+            per_scale = [split_to_patches(resize(x, (int(h * r), int(w * r))), psize, ov)
+                         for r, ov in zip(self.ratios, self.overlaps)]
+            counts = [p.shape[0] for p in per_scale]
+            crops = torch.cat(per_scale[::-1], dim=0)  # high res first
+        trace.count("depth_pro.crops", crops.shape[0])
+        with trace.span("depth_pro.patch_encode"):
+            pe_outs, _ = enc.patch_encoder.model(crops)
 
         exponent = int(math.log2(w / grid))
         base_h, base_w = h // 2**exponent, w // 2**exponent
-        feats: List[torch.Tensor] = []
-        for i in range(n_scales):
-            pad = int(self.merge_padding_value / self.ratios[i])
-            feats.append(reconstruct(per_scale_feats[i], b, pad, (base_h * 2**i, base_w * 2**i)))
-        # The hooks come from the full-res scale's patches, first in the batch.
-        hooks = self.hook_ids[::-1]
-        n_full = counts[-1]
-        pad = int(self.merge_padding_value / self.ratios[-1])
-        top_hw = (base_h * 2 ** (n_scales - 1), base_w * 2 ** (n_scales - 1))
-        inter = [reconstruct(pe_outs[hooks.index(hook)][:n_full], b, pad, top_hw) for hook in self.hook_ids]
+        with trace.span("depth_pro.merge", device=False):
+            per_scale_feats = torch.split(pe_outs[-1], counts[::-1], dim=0)[::-1]
+            feats: List[torch.Tensor] = []
+            for i in range(n_scales):
+                pad = int(self.merge_padding_value / self.ratios[i])
+                feats.append(reconstruct(per_scale_feats[i], b, pad, (base_h * 2**i, base_w * 2**i)))
+            # The hooks come from the full-res scale's patches, first in the batch.
+            hooks = self.hook_ids[::-1]
+            n_full = counts[-1]
+            pad = int(self.merge_padding_value / self.ratios[-1])
+            top_hw = (base_h * 2 ** (n_scales - 1), base_w * 2 ** (n_scales - 1))
+            inter = [reconstruct(pe_outs[hooks.index(hook)][:n_full], b, pad, top_hw) for hook in self.hook_ids]
 
-        img_in = resize(x, (psize, psize))
-        ie_outs, _ = enc.image_encoder.model(img_in)
-        feats = [resize(ie_outs[0], (base_h, base_w)), *feats, *inter]
+        with trace.span("depth_pro.image_encode"):
+            img_in = resize(x, (psize, psize))
+            ie_outs, _ = enc.image_encoder.model(img_in)
+            feats = [resize(ie_outs[0], (base_h, base_w)), *feats, *inter]
 
-        neck = self.depth_pro.neck
-        up = neck.feature_upsample
-        feats[0] = up.image_block(feats[0])
-        for i, blk in enumerate(up.scaled_images):
-            feats[i + 1] = blk(feats[i + 1])
-        for i, blk in enumerate(up.intermediate):
-            feats[n_scales + i + 1] = blk(feats[n_scales + i + 1])
-        glob = neck.fuse_image_with_low_res(torch.cat([feats[1], feats[0]], dim=1))
-        feats = [proj(f) for proj, f in zip(neck.feature_projection.projections, [glob, *feats[2:]])]
+        with trace.span("depth_pro.decode"):
+            neck = self.depth_pro.neck
+            up = neck.feature_upsample
+            feats[0] = up.image_block(feats[0])
+            for i, blk in enumerate(up.scaled_images):
+                feats[i + 1] = blk(feats[i + 1])
+            for i, blk in enumerate(up.intermediate):
+                feats[n_scales + i + 1] = blk(feats[n_scales + i + 1])
+            glob = neck.fuse_image_with_low_res(torch.cat([feats[1], feats[0]], dim=1))
+            feats = [proj(f) for proj, f in zip(neck.feature_projection.projections, [glob, *feats[2:]])]
 
-        fused = None
-        for i, f in enumerate(feats[:-1]):
-            layer = self.fusion_stage.intermediate[i]
-            fused = layer(f) if fused is None else layer(fused, f)
-        fused = self.fusion_stage.final(fused, feats[-1])
-        inv_depth = self.head.layers(fused)[:, 0]
+            fused = None
+            for i, f in enumerate(feats[:-1]):
+                layer = self.fusion_stage.intermediate[i]
+                fused = layer(f) if fused is None else layer(fused, f)
+            fused = self.fusion_stage.final(fused, feats[-1])
+            inv_depth = self.head.layers(fused)[:, 0]
 
         fov_deg = None
         if self.use_fov:

@@ -338,7 +338,10 @@ def test_moge_unidepth_checkpoint_both_routes(tmp_path, network):
 def test_depth_pro_checkpoint_both_routes(tmp_path):
     """A HuggingFace DepthProForDepthEstimation (tiny config, FOV branch on)
     state dict as a .safetensors: the JAX converter into flax against the
-    port's predictor loading the file."""
+    port's predictor loading the file. On these weights the head's final
+    ReLU zeroes every pixel, so the depth path is compared before it: the
+    last convolution's output (flax's captured ``head_4``, the port's
+    ``head.layers[-2]``)."""
     transformers = pytest.importorskip("transformers")
     st_torch = pytest.importorskip("safetensors.torch")
     from test_depth_pro_parity import _tiny_config
@@ -355,10 +358,18 @@ def test_depth_pro_checkpoint_both_routes(tmp_path):
     kw = dict(TINY_DEPTH_PRO, use_fov=True)
     x = np.random.default_rng(16).normal(size=(2, 224, 224, 3)).astype(np.float32)
     jnet = jdpm.DepthProNet(**kw)
-    jinv, jfov = jax.jit(jnet.apply)(jdp.convert_depth_pro_checkpoint(sd, jnet), x)
+    (jinv, jfov), state = jax.jit(lambda v, x: jnet.apply(
+        v, x, capture_intermediates=lambda mdl, _: mdl.name == "head_4", mutable=["intermediates"]))(
+        jdp.convert_depth_pro_checkpoint(sd, jnet), x)
+    jpre = np.asarray(state["intermediates"]["head_4"]["__call__"][0])[..., 0]
     pred = dp.AppleDepthProPredictor(checkpoint=path, input_size=224, device=CPU, **kw)
+    got = {}
+    hook = pred.net.head.layers[-2].register_forward_hook(lambda m, i, o: got.__setitem__("pre", o[:, 0]))
     with torch.no_grad():
         inv, fov = pred.net(t(np.moveaxis(x, -1, 1)))
+    hook.remove()
+    assert np.abs(jpre).max() > 0 and np.ptp(jpre) > 0  # a map that varies, unlike the ReLU's zeros
+    assert_close_scaled(got["pre"], jpre, 1e-4)
     assert_close_scaled(inv, jinv, 1e-4)
     assert_close_scaled(fov, jfov, 1e-4)
 
