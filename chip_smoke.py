@@ -54,6 +54,19 @@ no result line.
    minimum of two rounds of 20 launches, beside their byte and operation
    bounds, the twins' time and autograd through the plain ops (the path
    they replaced); phase 4's kernel rows take these.
+2d. The SAM mask decoder's attention (models/sam.py): K8 against its
+   plain twin evaluated in float64 at a decoder batch's three shapes (64
+   prompts, a 64x64 image grid, 7 tokens: token to image, 7 queries against
+   4,096 keys, and image to token, 4,096 against 7, at 8 heads of 16; the
+   7x7 self-attention at 8 heads of 32), within SAM_ATTN_LIMIT of the
+   largest value (the float32 twin's and SDPA's gaps beside it), one launch
+   a call; each timed (the minimum of two rounds of 20 launches) beside its
+   byte and operation bounds, the twin and F.scaled_dot_product_attention
+   with the heads' split and merge (the decoder's path before K8); then a
+   decoder batch at the published width, whose launches must be 7 and its
+   kernels 10 (the three token-to-image calls run the merge too). Phase
+   4's kernel row for K8 takes the token-to-image case, and its launches a
+   mask generator call from phase 6d.
 3. The main path: the train step at bench.py's flagship scenario (300k
    gaussians, capacity 393216, 1296x840, tile 32, chunk 128, SH degree 3,
    L1 + SSIM, Adam, densification statistics), a step function built
@@ -119,11 +132,13 @@ no result line.
    ViT-H at 1024, batch 1: the encoder's device time, TFLOP/s and peak
    memory, a 64-prompt decoder call, the top kernels of each; the
    automatic mask generator on one of phase 6a's 1296x840 images (seconds,
-   masks kept, at the default filters and with every mask passing them);
+   masks kept, at the default filters and with every mask passing them;
+   K8's launches in the timed call, which must be 7 a decoder batch);
    Runner(cfg) with the stub depth aligned per SAM region
    (segmentation.method="sam", ViT-H) on phase 6a's scene (its first
-   SAM_CAMERAS cameras) into 20 train steps, one launch of each compositor
-   kernel per step.
+   SAM_CAMERAS cameras; K8's launches 7 a decoder batch of each generator
+   call) into 20 train steps, one launch of each compositor kernel per
+   step.
 7. The trainer entry point: gs_init_tpu_torch.trainer.main on phase 5's
    scene, once per preset, 300 steps with checkpoints at 150 and 300, PLY
    export and compression; eval PSNR must rise, MCMC's alive count stay
@@ -342,6 +357,11 @@ KERNELS = {
         route="cuda",
         source="gs_init_tpu_torch/csrc/ssim_bwd.cu",
         replaces="none (XLA fused its VJP)",
+    ),
+    "sam_attention": dict(
+        route="cuda",
+        source="gs_init_tpu_torch/csrc/sam_attention.cu",
+        replaces="none (XLA fused gs_init_tpu/models/sam.py's DecoderAttention)",
     ),
 }
 
@@ -1187,6 +1207,105 @@ def ssim_checks(dev):
     return garden
 
 
+# ----------------------------------------------------------------- phase 2d
+
+# A decoder batch of the mask generator (64 prompts, a 64x64 image grid,
+# 5 + 2 tokens): (name, query tokens, key tokens, heads, head).
+SAM_ATTN_BATCH = 64
+SAM_ATTN_CASES = [
+    ("token_to_image", 7, 4096, 8, 16),
+    ("image_to_token", 4096, 7, 8, 16),
+    ("self", 7, 7, 8, 32),
+]
+# K8's largest gap from the twin evaluated in float64, of the output's
+# largest value: K8 reads ~5e-7 at these shapes and the float32 twin ~6e-7;
+# an attention in TF32 reads ~1e-3.
+SAM_ATTN_LIMIT = 2e-6
+
+
+def sam_decoder_batches(gen) -> int:
+    """The mask generator's decoder batches a call: its grid's point
+    prompts in batches of points_per_batch."""
+    return -(-gen.points_per_side**2 // gen.points_per_batch)
+
+
+def sam_attention_checks(dev):
+    """Phase 2d: K8 against the twin in float64 at a decoder batch's shapes,
+    each timed beside its bounds, the twin and SDPA; a decoder batch's
+    launches and kernels. Returns the measurements by case."""
+    import torch
+    import torch.nn.functional as F
+    from gs_init_tpu_torch import kernels
+    from gs_init_tpu_torch.models import sam as S
+    from gs_init_tpu_torch.models.common import build, full_fp32, init_random_
+
+    b = SAM_ATTN_BATCH
+    res, fails = {}, []
+    for name, nq, nk, heads, head in SAM_ATTN_CASES:
+        d = heads * head
+        g = torch.Generator(device=dev).manual_seed(nq * 7919 + nk)
+        q, k, v = (torch.randn(b, m, d, device=dev, generator=g) for m in (nq, nk, nk))
+
+        def sdpa():  # the decoder's attention before K8
+            split = lambda x: x.reshape(b, x.shape[1], heads, head).transpose(1, 2)
+            return F.scaled_dot_product_attention(split(q), split(k), split(v)).transpose(1, 2).reshape(b, nq, d)
+
+        with torch.inference_mode(), full_fp32():
+            want = S.decoder_attention_plain(q.double(), k.double(), v.double(), heads)
+            l0 = kernels.LAUNCHES["sam_attention"]
+            got = S.decoder_attention(q, k, v, heads)
+            again = S.decoder_attention(q, k, v, heads)
+            torch.cuda.synchronize()
+            launched = kernels.LAUNCHES["sam_attention"] - l0
+            gap_of = lambda x: float((x.double() - want).abs().max() / want.abs().max())
+            gap, twin_gap, sdpa_gap = gap_of(got), gap_of(S.decoder_attention_plain(q, k, v, heads)), gap_of(sdpa())
+            t = {}
+            for _ in range(2):  # plain, kernel, kernel, plain
+                t.setdefault("plain", []).append(cuda_ms(lambda: S.decoder_attention_plain(q, k, v, heads), 3))
+                t.setdefault("k8", []).append(cuda_ms(lambda: S.decoder_attention(q, k, v, heads), 20))
+                t.setdefault("k8", []).append(cuda_ms(lambda: S.decoder_attention(q, k, v, heads), 20))
+                t.setdefault("library", []).append(cuda_ms(sdpa, 20))
+            top = top_kernels(lambda: S.decoder_attention(q, k, v, heads), 3)
+        nbytes = 4 * (2 * b * nq * d + 2 * b * nk * d)  # q, k, v read once, out written once
+        ops = 4 * b * nq * nk * d  # the scores and the weighted values: 2 hd each a head, query and key
+        tb, to = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_FP32_FLOPS * 1e3
+        r = dict(shape=[b, nq, nk, heads, head], gap=gap, twin_gap=twin_gap, sdpa_gap=sdpa_gap,
+                 repeat_equal=bool(torch.equal(got, again)),
+                 launches=launched, bytes=nbytes, ops=ops, bound_ms=max(tb, to),
+                 bound_by="bytes" if tb > to else "operations", **{f"{k}_ms": float(np.min(x)) for k, x in t.items()},
+                 top=[(round(ms, 4), c, nm[:60]) for ms, c, nm in top])
+        r["share"] = r["bound_ms"] / r["k8_ms"]
+        res[name] = r
+        log(f"  sam attention {name}: " + json.dumps(r, default=lambda x: round(x, 9) if isinstance(x, float) else str(x)))
+        if not gap < SAM_ATTN_LIMIT:
+            fails.append(f"{name}: largest gap {gap:.3e} of the largest value (limit {SAM_ATTN_LIMIT:g})")
+        if launched != 2 or not r["repeat_equal"]:
+            fails.append(f"{name}: {launched} launches for two calls, the same bits: {r['repeat_equal']}")
+
+    dec = init_random_(build(S.SamMaskDecoder), 3).to(dev).eval()
+    g = torch.Generator(device=dev).manual_seed(5)
+    args = (torch.randn(1, 256, 64, 64, device=dev, generator=g), torch.randn(64, 64, 256, device=dev, generator=g),
+            torch.randn(b, 2, 256, device=dev, generator=g), torch.randn(256, device=dev, generator=g))
+    with torch.inference_mode(), full_fp32():
+        l0 = kernels.LAUNCHES["sam_attention"]
+        ran = top_kernels(lambda: dec(*args), 10**4)
+        res["decoder_launches"] = kernels.LAUNCHES["sam_attention"] - l0
+        res["decoder_ms"] = cuda_ms(lambda: dec(*args), 5)
+    # K8's kernels by name: one a few-keys call, two (the partials, the
+    # merge) a few-queries call.
+    res["decoder_kernels"] = {kind: sum(c for _, c, nm in ran if f"{kind}_kernel<" in nm)
+                              for kind in ("few_keys", "few_queries", "merge")}
+    log(f"  sam decoder batch ({b} prompts, 64x64 grid): {res['decoder_ms']:.3f} ms, "
+        f"{res['decoder_launches']} launches of K8, its kernels {json.dumps(res['decoder_kernels'])}")
+    if res["decoder_launches"] != 7 or res["decoder_kernels"] != dict(few_keys=4, few_queries=3, merge=3):
+        fails.append(f"a decoder batch launched K8 {res['decoder_launches']} times, not 7, or ran its kernels "
+                     f"{res['decoder_kernels']}, not 4 few-keys, 3 few-queries and 3 merges")
+    del dec
+    if fails:
+        raise RuntimeError("phase 2d: " + "; ".join(fails))
+    return res
+
+
 # ------------------------------------------------------------------ phase 3
 
 
@@ -1321,7 +1440,7 @@ def main_path(ctx, warm=3, timed=20, tag="main path"):
 
     steps = warm + timed
     want = dict(composite_fwd=steps, composite_bwd=steps, scan_probe=1, project_pack_fwd=steps,
-                project_pack_bwd=steps, ssim_fwd=steps, ssim_bwd=steps)
+                project_pack_bwd=steps, ssim_fwd=steps, ssim_bwd=steps, sam_attention=0)
     for name in KERNELS:
         if launches.get(name, 0) != want[name]:
             raise RuntimeError(f"{tag}: {name} launched {launches.get(name, 0)} times in {steps} steps, "
@@ -1609,7 +1728,7 @@ def launch_floor(dev, launches=100):
     return res
 
 
-def kernel_report(ctx, launches, scan_err, pp, ss):
+def kernel_report(ctx, launches, scan_err, pp, ss, sa):
     from gs_init_tpu_torch.ops import rasterize as prast
 
     fargs, bargs = capture_inputs(ctx)
@@ -1693,6 +1812,12 @@ def kernel_report(ctx, launches, scan_err, pp, ss):
         rows.append(entry(name, err, ss[f"{k}_ms"], ss[f"{plain}_ms"], ss[f"{k}_bytes"],
                           ss["k7_ops" if k == "k7" else "k6_ops"]))
         rows[-1]["autograd_pair_ms"] = ss["autograd_ms"]
+    # Phase 2d's token-to-image case; its launches are a mask generator
+    # call's, which main fills in from phase 6d (the train step has none).
+    t2i = sa["token_to_image"]
+    rows.append(dict(entry("sam_attention", None, t2i["k8_ms"], t2i["plain_ms"], t2i["bytes"], t2i["ops"]),
+                     launches=None, launches_per="generator call", max_rel_err=t2i["gap"],
+                     library_ms=t2i["library_ms"], kernels_per_decoder_batch=sa["decoder_kernels"]))
     for r in rows:
         log(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms), bound "
             f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({r['bound_ms'] / r['ms']:.3f} of the bound)")
@@ -2347,8 +2472,11 @@ def sam_full_width(dev, scene):
     encoder's device time, FLOP rate and peak memory at batch 1, a decoder
     call on 64 point prompts, the top kernels of each; then the automatic
     mask generator on one of the clustered scene's 1296x840 images at its
-    default filters and with every mask passing them."""
+    default filters and with every mask passing them, K8 launched 7 times a
+    decoder batch. Returns K8's launches in a generator call at the default
+    filters and its decoder batches."""
     import torch
+    from gs_init_tpu_torch import kernels
     from gs_init_tpu_torch.mdi.segmentation_sam import SamMaskGenerator
     from gs_init_tpu_torch.models.common import full_fp32
 
@@ -2387,14 +2515,22 @@ def sam_full_width(dev, scene):
         g = gen if not kw else SamMaskGenerator("vit_h", allow_random_weights=True, device=dev, **kw)
         g.generate(img)  # warm-up
         torch.cuda.synchronize()
+        kernels.reset_launch_counts()
         t0 = time.perf_counter()
         masks = g.generate(img)
         sec = time.perf_counter() - t0
+        k8 = dict(launches=kernels.LAUNCHES["sam_attention"], decoder_batches=sam_decoder_batches(g))
         log(f"  mask generator, {label}, one {img.shape[1]}x{img.shape[0]} image: {sec:.3f} s, "
-            f"{len(masks)} masks kept (areas {[m['area'] for m in masks][:8]})")
+            f"{len(masks)} masks kept (areas {[m['area'] for m in masks][:8]}); K8 launched {k8['launches']} "
+            f"times over {k8['decoder_batches']} decoder batches")
+        if k8["launches"] != 7 * k8["decoder_batches"]:
+            raise RuntimeError(f"the mask generator launched K8 {k8['launches']} times, not 7 a decoder batch")
+        if not kw:
+            k8_default = k8
         del g
     del gen, net
     torch.cuda.empty_cache()
+    return k8_default
 
 
 # Phase 6d's SAM-segmented init runs on the scene's first SAM_CAMERAS
@@ -2424,10 +2560,23 @@ def sam_runner_e2e(dev, scene, data_dir, steps=20):
         seg = cfg.mdi.alignment.segmentation
         seg.method, seg.sam_allow_random_weights = "sam", True
         parser = first_cameras(Parser(data_dir, factor=1, test_every=8), SAM_CAMERAS)
+        # Each generator call's decoder batches, for K8's launches.
+        batches, generate = [], segmentation_sam.SamMaskGenerator.generate
+
+        def counted(gen, image):
+            batches.append(sam_decoder_batches(gen))
+            return generate(gen, image)
+
+        kernels.reset_launch_counts()
         t0 = time.perf_counter()
-        runner = Runner(cfg, parser=parser, mdi_model=surface_depth_stub(scene, parser), device=dev)
+        segmentation_sam.SamMaskGenerator.generate = counted
+        try:
+            runner = Runner(cfg, parser=parser, mdi_model=surface_depth_stub(scene, parser), device=dev)
+        finally:
+            segmentation_sam.SamMaskGenerator.generate = generate
         torch.cuda.synchronize()
         t1 = time.perf_counter()
+        k8 = kernels.LAUNCHES["sam_attention"]
         n0 = int(runner.gstate.alive.sum())
         kernels.reset_launch_counts()
         losses = np.array([float(runner.train_iteration(step)["loss"]) for step in range(steps)])
@@ -2437,8 +2586,12 @@ def sam_runner_e2e(dev, scene, data_dir, steps=20):
         n_img = len(runner.trainset)
         log(f"  Runner(cfg), stub depth with SAM vit_h regions: set-up and init {t1 - t0:.3f} s "
             f"({(t1 - t0) / n_img:.3f} s per image over {n_img}), {n0} gaussians; {steps} steps in "
-            f"{t2 - t1:.3f} s, loss {losses[0]:.4f} -> {losses[-1]:.4f}; launches {json.dumps(launches)}")
+            f"{t2 - t1:.3f} s, loss {losses[0]:.4f} -> {losses[-1]:.4f}; launches {json.dumps(launches)}; "
+            f"K8 launched {k8} times in the init over {len(batches)} generator calls of {sum(batches)} decoder "
+            "batches")
         segmentation_sam._cached_generator.cache_clear()
+        if not batches or k8 != 7 * sum(batches):
+            raise RuntimeError(f"the SAM-segmented init launched K8 {k8} times, not 7 a decoder batch")
         if n0 <= len(parser.points) or not np.isfinite(losses).all():
             raise RuntimeError("the SAM-segmented init gave no depth points or a non-finite loss")
         if launches != dict(composite_fwd=steps, composite_bwd=steps):
@@ -5568,6 +5721,8 @@ def main():
     pp = next(r for r in project_pack_checks(dev) if r["tag"] == PP_REPORTED)
     log("phase 2c: SSIM, K6 and K7 against plain")
     ss = ssim_checks(dev)
+    log("phase 2d: the SAM decoder's attention, K8 against plain")
+    sa = sam_attention_checks(dev)
     step_card_vs_cpu(dev)
     step_card_vs_cpu(dev, aux_groups=True)
     mcmc_card_vs_cpu(dev)
@@ -5581,7 +5736,7 @@ def main():
     profile_window(ctx, float(np.median(step_ms)))
 
     log("phase 4: kernels on the flagship step's inputs")
-    rows = kernel_report(ctx, launches, scan_err, pp, ss)
+    rows = kernel_report(ctx, launches, scan_err, pp, ss, sa)
     launch_floor(dev)
     del ctx
     torch.cuda.empty_cache()
@@ -5610,7 +5765,8 @@ def main():
         log(f"phase 6d: SAM, card against CPU, ViT-H at 1024, the mask generator and the SAM-segmented init "
             f"({time.perf_counter() - t_start:.1f} s)")
         sam_card_vs_cpu(dev)
-        sam_full_width(dev, scene)
+        k8_generate = sam_full_width(dev, scene)
+        next(r for r in rows if r["name"] == "sam_attention").update(k8_generate)
         sam_runner_e2e(dev, scene, data_dir)
         image9 = np.array(scene.images[0], np.float32)
     log(f"phase 7: the trainer entry point, both presets, checkpoints and the eval-only restart "

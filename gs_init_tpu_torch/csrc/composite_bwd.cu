@@ -277,7 +277,7 @@ extern "C" int composite_bwd(const void* table, const void* gid_sorted,
     const size_t smem = sizeof(float4) * 2 * ROW_F4 * chunk +
                         sizeof(int) * 3 * chunk +
                         sizeof(float) * WARPS * NACC * chunk;
-    const cudaError_t err = allow_smem(composite_bwd_kernel, smem);
+    const cudaError_t err = allow_smem<composite_bwd_kernel>(smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     composite_bwd_kernel<<<num_tiles, THREADS, smem,
                            static_cast<cudaStream_t>(stream)>>>(

@@ -9,6 +9,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "smem.cuh"
+
 namespace gs {
 
 constexpr int THREADS = 256;      // one block per image tile
@@ -250,22 +252,6 @@ __device__ __forceinline__ float sigma_at(float dx, float dy, float ca,
   const float t2 = __fmul_rn(__fmul_rn(cc, dy), dy);
   const float t3 = __fmul_rn(__fmul_rn(cb, dx), dy);
   return __fadd_rn(__fadd_rn(t1, t2), t3);
-}
-
-// Let `kernel` take `bytes` of dynamic shared memory on the current device.
-// Above 48 KB that needs cudaFuncSetAttribute, set once per device.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  static int allowed[64] = {};  // bytes allowed so far, per device
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 64 && allowed[dev] >= static_cast<int>(bytes)) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
-  if (err == cudaSuccess && dev < 64) allowed[dev] = static_cast<int>(bytes);
-  return err;
 }
 
 }  // namespace gs

@@ -168,7 +168,7 @@ extern "C" int composite_fwd(const void* table, const void* gid_sorted,
   if (num_tiles > 0) {
     const size_t smem =
         sizeof(float4) * 2 * ROW_F4 * chunk + sizeof(int) * 3 * chunk;
-    const cudaError_t err = allow_smem(composite_fwd_kernel, smem);
+    const cudaError_t err = allow_smem<composite_fwd_kernel>(smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     composite_fwd_kernel<<<num_tiles, THREADS, smem,
                            static_cast<cudaStream_t>(stream)>>>(

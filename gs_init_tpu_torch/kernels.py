@@ -86,6 +86,11 @@ KERNELS = {
         # b, h, w, c, inv_count, c1, c2, stream
         [_P] * 7 + [_I] * 4 + [_F] * 3 + [_P],
     ),
+    "sam_attention": (
+        "sam_attention.cu",
+        # q, k, v, out, part, b, nq, nk, heads, head, stream
+        [_P] * 5 + [_I] * 5 + [_P],
+    ),
 }
 # Flags of one library beyond NVCC_FLAGS. K4's radii and extents feed the
 # binning, so its arithmetic rounds as the plain ops do: no contraction of
@@ -183,6 +188,17 @@ def function(name: str):
             err.restype = ctypes.c_char_p
             _LIBS[name] = (lib, fn, err)
         return _LIBS[name][1]
+
+
+def query(name: str, symbol: str, *args: int) -> int:
+    """Call ``symbol``, a host function of kernel ``name``'s library that
+    takes ``int`` arguments and returns a ``long long`` (the size of a
+    kernel's workspace, say). Launches nothing."""
+    function(name)
+    fn = getattr(_LIBS[name][0], symbol)
+    fn.argtypes = [ctypes.c_int] * len(args)
+    fn.restype = ctypes.c_longlong
+    return fn(*args)
 
 
 def check(name: str, code: int) -> None:

@@ -16,7 +16,9 @@ loads by name (``mdi/predictors/sam_convert.py``).
   embeddings, the no-mask dense embedding.
 - ``SamMaskDecoder``: IoU and mask tokens, the two-way transformer (depth
   2), transposed-conv upscaling, per-token hypernetwork MLPs, the IoU head.
-  Its attention has no bias and goes to ``F.scaled_dot_product_attention``.
+  Its attention core, between the projections, is ``decoder_attention``: on
+  CUDA tensors the hand-written kernel K8 (``csrc/sam_attention.cu``), on CPU
+  tensors its plain twin ``decoder_attention_plain``.
 
 With the tracer on (``trace.py``), each encoder pass is span ``sam.encode``
 and each decoder call span ``sam.decode``, both with CUDA events.
@@ -33,7 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .. import trace
+from .. import kernels, trace
 from .common import init_random_, jax_resize_matrix, resize
 
 
@@ -242,6 +244,67 @@ class SamPromptEncoder(nn.Module):
         return pe + emb, self.no_mask_embed.weight[0]
 
 
+# K8's limit (csrc/sam_attention.cu): the short side's largest token count.
+ATTN_MAX_SHORT = 64
+
+
+def decoder_attention_plain(q, k, v, heads: int):
+    """K8's specification: q [B, Nq, heads * hd], k and v [B, Nk, heads * hd]
+    -> softmax((q_h / sqrt(hd)) k_h^T) v_h per batch entry and head h, as
+    [B, Nq, heads * hd]. The scale goes on q before the product, as the JAX
+    package's ``DecoderAttention`` does; the softmax is explicit over all
+    keys: the scores' max, the exponentials, and the weighted values over
+    their sum."""
+    b, nq, d = q.shape
+    hd = d // heads
+    split = lambda t: t.reshape(b, t.shape[1], heads, hd).transpose(1, 2)
+    s = (split(q) / math.sqrt(hd)) @ split(k).transpose(-2, -1)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    return ((p @ split(v)) / p.sum(-1, keepdim=True)).transpose(1, 2).reshape(b, nq, d)
+
+
+def _check_attention(q, k, v, heads: int) -> None:
+    """Raise on what K8 does not take."""
+    if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape or q.shape[0] != k.shape[0] or q.shape[2] != k.shape[2]:
+        raise ValueError(f"K8 takes q [B, Nq, D] and k, v [B, Nk, D], got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    (b, nq, d), nk = q.shape, k.shape[1]
+    if heads != 8 or d not in (128, 256):
+        raise ValueError(f"K8 takes the decoder's 8 heads of 16 or of 32, got {heads} heads over a width of {d}")
+    if not 1 <= b <= 65535 or min(nq, nk) < 1 or (nk > ATTN_MAX_SHORT and nq > ATTN_MAX_SHORT):
+        raise ValueError(f"K8 needs 1 <= B <= 65535 and at most {ATTN_MAX_SHORT} tokens on one side, got B {b}, "
+                         f"{nq} queries and {nk} keys")
+    if any(not t.is_cuda or t.device != q.device for t in (q, k, v)):
+        raise ValueError(f"K8 needs q, k and v on one CUDA device, got {q.device}, {k.device}, {v.device}")
+    if any(t.dtype != torch.float32 for t in (q, k, v)):
+        raise ValueError(f"K8 takes float32, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if any(not t.is_contiguous() or t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("K8 takes contiguous q, k and v on 16-byte boundaries")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise ValueError("K8 has no backward: run the decoder without a gradient")
+
+
+def decoder_attention(q, k, v, heads: int):
+    """K8 on CUDA tensors, ``decoder_attention_plain`` on CPU tensors: the
+    attention core of the decoder's ``DecoderAttention`` on the projections'
+    outputs, [B, Nq, heads * hd] out. One launch a call, counted in
+    ``kernels.LAUNCHES``: one kernel with few keys, two (the key slices'
+    partials, then their merge) with few queries."""
+    if not (q.is_cuda or k.is_cuda or v.is_cuda):
+        return decoder_attention_plain(q, k, v, heads)
+    _check_attention(q, k, v, heads)
+    (b, nq, d), nk = q.shape, k.shape[1]
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        nbytes = kernels.query("sam_attention", "sam_attention_workspace", b, nq, nk, heads, d // heads)
+        if nbytes < 0:
+            raise ValueError(f"K8 does not take B {b}, {nq} queries, {nk} keys, {heads} heads of {d // heads}")
+        part = torch.empty(nbytes // 4, dtype=torch.float32, device=q.device) if nbytes else None
+        kernels.launch("sam_attention", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                       0 if part is None else part.data_ptr(), b, nq, nk, heads, d // heads)
+    return out
+
+
 class DecoderAttention(nn.Module):
     def __init__(self, embed_dim: int, num_heads: int, downsample_rate: int = 1):
         super().__init__()
@@ -253,10 +316,7 @@ class DecoderAttention(nn.Module):
         self.out_proj = nn.Linear(d, embed_dim)
 
     def forward(self, q, k, v):
-        split = lambda t: t.reshape(t.shape[0], t.shape[1], self.num_heads, -1).transpose(1, 2)
-        out = F.scaled_dot_product_attention(split(self.q_proj(q)), split(self.k_proj(k)), split(self.v_proj(v)))
-        b, _, n, _ = out.shape
-        return self.out_proj(out.transpose(1, 2).reshape(b, n, -1))
+        return self.out_proj(decoder_attention(self.q_proj(q), self.k_proj(k), self.v_proj(v), self.num_heads))
 
 
 class TwoWayBlock(nn.Module):

@@ -167,9 +167,13 @@ def test_cpu_tensors_take_the_plain_path():
 
     img = torch.rand((1, 12, 13, 3), requires_grad=True)
     torch.autograd.grad(ssim(img, torch.rand((1, 12, 13, 3))), img)
+    from gs_init_tpu_torch.models.sam import decoder_attention
+
+    assert decoder_attention(torch.rand(2, 7, 128), torch.rand(2, 300, 128), torch.rand(2, 300, 128), 8).shape == (
+        2, 7, 128)
     assert kernels.LAUNCHES == {
         "composite_fwd": 0, "composite_bwd": 0, "scan_probe": 0, "project_pack_fwd": 0, "project_pack_bwd": 0,
-        "ssim_fwd": 0, "ssim_bwd": 0,
+        "ssim_fwd": 0, "ssim_bwd": 0, "sam_attention": 0,
     }
 
 

@@ -137,7 +137,7 @@ def test_counters_add_on_the_host_and_on_the_device(tracer):
     assert rep["counters"] == {"a": 5, "b": 10, "c": 0.75}
     assert set(rep["launches"]) == {
         "composite_fwd", "composite_bwd", "scan_probe", "project_pack_fwd", "project_pack_bwd", "ssim_fwd",
-        "ssim_bwd",
+        "ssim_bwd", "sam_attention",
     }
     trace.reset()
     assert trace.report()["counters"] == {}
